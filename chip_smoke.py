@@ -4,15 +4,18 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `pixflow_tpu_torch/csrc`, holds each
-against its plain PyTorch version at the recipe's shapes, checks one float32
-train step through the kernels against the same step through the plain
-versions, then trains the `pretrain_bdd100k_2000ep_nframe6` recipe at full
-width (ResNet-50, 224 px, per-card batch 64, K=5 flows of 90 x 160, bf16
-autocast over f32 weights) for 2 warm-up and 10 timed steps on synthetic
-data made from a seed. Each phase prints one JSON line; then come the
-`kernels` line, the card's `nvidia-smi` name and power limit, and last
-`{"ok": true, "device": ...}`. Any failed check raises: no `ok` line and a
-non-zero exit. Without a CUDA device it exits non-zero at once."""
+against its plain PyTorch version at the recipe's shapes (K1 pair sums, K2
+point sampling, and the fused lazy flow_up evaluation, which also times the
+path it replaced: the composition through 15 K2 launches), checks one
+float32 train step through the kernels against the same step through the
+plain versions, then trains the `pretrain_bdd100k_2000ep_nframe6` recipe at
+full width (ResNet-50, 224 px, per-card batch 64, K=5 flows of 90 x 160,
+bf16 autocast over f32 weights) for 2 warm-up and 10 timed steps on
+synthetic data made from a seed, and checks which kernels that run launched.
+Each phase prints one JSON line; then come the `kernels` line, the card's
+`nvidia-smi` name and power limit, and last `{"ok": true, "device": ...}`.
+Any failed check raises: no `ok` line and a non-zero exit. Without a CUDA
+device it exits non-zero at once."""
 
 import copy
 import json
@@ -195,6 +198,97 @@ def compare_point_sample(dev, batch):
     return results
 
 
+def compare_flow_up_points(dev, batch):
+    from pixflow_tpu_torch.configs import get_recipe
+    from pixflow_tpu_torch.ops.flow_points import mask_grid
+    from pixflow_tpu_torch.ops.kernels import (composite_weights_1d, cycle_mask_points,
+                                               cycle_mask_points_plain, flow_up_points,
+                                               flow_up_points_plain, point_sample)
+    from pixflow_tpu_torch.ops.kernels.flow_up_points import sample_up_plain
+    from pixflow_tpu_torch.ops.loss import bin_centers
+    from pixflow_tpu_torch.train.train_step import MASK_RATIO_STRIDE
+
+    flow = get_recipe(RECIPE).flow
+    fwd = batch["flows_fwd"].transpose(0, 1).contiguous()  # [5, 64, 90, 160, 2]
+    bwd = batch["flows_bwd"].transpose(0, 1).contiguous()
+    k, b, h, w, _ = fwd.shape
+    coord = batch["coord1"]
+    x, y = (t.reshape(b, -1).contiguous() for t in bin_centers(coord, (7, 7)))
+    modes = {
+        # one direction of the train step: 49 bin centers per sample
+        "warp": (flow_up_points, flow_up_points_plain,
+                 (fwd, bwd, x, y, coord[:, 8], coord[:, 9], flow.alpha1, flow.alpha2, False)),
+        # the telemetry: the cycle mask on every 32nd fine pixel
+        "mask": (cycle_mask_points, cycle_mask_points_plain,
+                 (fwd, bwd, mask_grid(b, h, w, MASK_RATIO_STRIDE, dev), flow.alpha1,
+                  flow.alpha2, False)),
+    }
+    results = {}
+    for mode, (kern, plain, args) in modes.items():
+        before = flow_up_points.launches
+        got, want = kern(*args), plain(*args)
+        torch.cuda.synchronize()
+        launches = flow_up_points.launches - before
+        got, want = (list(v) if mode == "warp" else [v] for v in (got, want))
+        entry = {"points": list(got[-1].shape), "launches": launches}
+        m_got, m_want = got[-1], want[-1]
+        entry["mask_entries_differ"] = int((m_got != m_want).sum())
+        entry["mask_agreement"] = float((m_got == m_want).float().mean())
+        entry["trusted_share"] = float(m_want.mean())
+        check(launches == 1, f"flow_up_points {mode}: {launches} launches for one call")
+        check(entry["mask_agreement"] >= 0.995, f"flow_up_points {mode}: masks agree "
+              f"on {entry['mask_agreement']}")
+        if mode == "warp":
+            diff = torch.maximum((got[0] - want[0]).abs(), (got[1] - want[1]).abs())
+            entry["max_abs_err"] = float(diff.max())
+            entry["positions_bit_equal"] = int(((got[0] == want[0]) & (got[1] == want[1])).sum())
+            check(entry["max_abs_err"] <= 1e-3,
+                  f"flow_up_points: positions differ by {entry['max_abs_err']} px")
+        else:
+            entry["max_abs_err"] = float((m_got - m_want).abs().max())
+
+        # the taps this run's trajectories read, from the plain composition
+        taps = [0.0]
+
+        def counting(coarse, pts):
+            n = ((composite_weights_1d(pts[..., 1], 8 * h, h) != 0).sum(-1)
+                 * (composite_weights_1d(pts[..., 0], 8 * w, w) != 0).sum(-1))
+            taps[0] += float(n.sum())
+            return sample_up_plain(coarse, pts)
+
+        plain(*args, sampler=counting)
+        inputs = sum(t.numel() * 4 for t in args if isinstance(t, torch.Tensor)
+                     and t is not fwd and t is not bwd)
+        bytes_ = (min(taps[0] * 2 * 4, (fwd.numel() + bwd.numel()) * 4) + inputs
+                  + sum(t.numel() * 4 for t in got))
+        ops_s = taps[0] * 2 * 2 / F32_OPS_PER_S
+        # the path this kernel replaced: the same composition, its U(f) reads
+        # through K2 (15 launches per direction in warp mode) and its small ops
+        k2_path = lambda: plain(*args, sampler=lambda c_, p_: point_sample(c_, p_, 8))
+        entry.update(
+            taps=taps[0],
+            kernel_ms=cuda_ms(lambda: kern(*args)), host_ms=host_ms(lambda: kern(*args)),
+            plain_ms=cuda_ms(lambda: plain(*args), iters=10),
+            k2_path_ms=cuda_ms(k2_path, iters=10), k2_path_host_ms=host_ms(k2_path, iters=10),
+            bound_ms=max(bytes_ / HBM_BYTES_PER_S, ops_s) * 1e3,
+            bound_by="bytes" if bytes_ / HBM_BYTES_PER_S >= ops_s else "operations",
+            library_ms=None)
+        results[mode] = entry
+
+    # PyTorch's CUDA division by a Python number multiplies by its float32
+    # reciprocal; the plain composition writes that product out
+    v = torch.rand(1 << 20, device=dev, generator=torch.Generator(device=dev).manual_seed(3))
+    v = v * 1400.0 - 50.0
+    torch.cuda.synchronize()
+    scalar = v / 1279
+    results["scalar_division"] = {
+        "values": v.numel(),
+        "differ_from_true_division": int((scalar != v / torch.full((), 1279.0, device=dev)).sum()),
+        "differ_from_reciprocal_product": int((scalar != v * float(np.float32(1) / np.float32(1279))).sum())}
+    emit({"phase": "kernel_flow_up_points", "flows": [k, b, h, w, 2], **results})
+    return results
+
+
 # --- phase 3: one f32 step through the kernels vs the plain versions ---------
 
 def step_parity(dev):
@@ -280,7 +374,10 @@ def recipe_run(dev):
     check(all(bool(torch.isfinite(p).all()) for p in trainer.state.model.parameters()),
           "non-finite parameters after the run")
     n_tele = len(logged)
-    expect = {"pair_sums": 2 * 12, "point_sample": 30 * 12 + 20 * n_tele}
+    # one flow_up_points launch per direction, one more per direction for the
+    # telemetry of a logged step; K2 itself is off the path
+    expect = {"pair_sums": 2 * 12, "point_sample": 0,
+              "flow_up_points": 2 * 12 + 2 * n_tele}
     check(launches == expect, f"kernel launches {launches}, expected {expect}")
     total = sum(times)
     emit({"phase": "recipe", "recipe": RECIPE, "arch": cfg.model.arch,
@@ -318,6 +415,7 @@ def main():
     batch = to_device(synthetic_batch(get_recipe(RECIPE), seed=1), dev)
     k1 = compare_pair_sums(dev, batch)
     k2 = compare_point_sample(dev, batch)
+    fused = compare_flow_up_points(dev, batch)
     step_parity(dev)
     launches = recipe_run(dev)
 
@@ -328,11 +426,15 @@ def main():
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                 "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
 
-    # each kernel as the main path runs it: K1 on bf16 features, K2 at up=8
+    # each kernel as the main path runs it: K1 on bf16 features, the fused
+    # flow_up evaluation on one direction's bin centers; K2 (off the path) at
+    # up=1, tent_warp_pallas's function
     kernels = [entry("pair_sums", "pixflow_tpu/ops/pallas/pair_loss.py:36",
                      launches["pair_sums"], k1["bfloat16"]),
                entry("point_sample", "pixflow_tpu/ops/pallas/warp.py:50",
-                     launches["point_sample"], k2["up8"])]
+                     launches["point_sample"], k2["up1"]),
+               entry("flow_up_points", "pixflow_tpu/ops/pallas/warp.py:50",
+                     launches["flow_up_points"], fused["warp"])]
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -5,7 +5,8 @@ Every source under `pixflow_tpu_torch/csrc/` is compiled by `nvcc` for
 shared library with a plain C interface, and loaded with `ctypes`. Nothing
 includes PyTorch's headers, so a build takes seconds. The library goes to
 `build/pixflow_tpu_torch/<hash>/` at the root of the checkout, keyed by a
-hash of the sources and flags: an edited source is rebuilt at its first use.
+hash of the sources, their headers (`*.cuh`) and the flags: an edited
+source is rebuilt at its first use.
 Building happens at the first kernel launch, never at import."""
 
 from __future__ import annotations
@@ -23,7 +24,7 @@ CSRC_DIR = _PKG_DIR / "csrc"
 BUILD_DIR = _PKG_DIR.parent / "build" / "pixflow_tpu_torch"
 LIB_NAME = "libpixflow_kernels.so"
 
-# --fmad=false: both kernels reproduce float32 op orders that the plain
+# --fmad=false: the kernels reproduce float32 op orders that the plain
 # versions (and the JAX package) evaluate without contraction into FMAs.
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "--fmad=false", "-Xcompiler", "-fPIC")
@@ -43,7 +44,7 @@ def _sources() -> list[Path]:
 
 def _digest(sources: list[Path]) -> str:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sources:
+    for src in sources + sorted(CSRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return h.hexdigest()[:16]

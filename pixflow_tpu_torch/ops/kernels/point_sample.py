@@ -90,6 +90,8 @@ def point_sample(field: torch.Tensor, pts: torch.Tensor, up: int = 1) -> torch.T
         raise ValueError(f"point_sample: up={up} must be >= 1")
     b, h, w, c = field.shape
     n = pts.shape[1]
+    if field.numel() >= 2 ** 31 or b * n * max(c, 2) >= 2 ** 31:
+        raise ValueError("point_sample: too large for the kernel's 32-bit offsets")
     out = torch.empty((b, n, c), dtype=torch.float32, device=field.device)
     if out.numel() == 0:
         return out

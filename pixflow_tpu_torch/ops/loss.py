@@ -17,7 +17,7 @@ from typing import Callable, Optional
 
 import torch
 
-from .flow_points import LazyFlowUp, flow_up_warp_points
+from .flow_points import LazyFlowUp, flow_up_warp_points, lazy_warp_points
 from .kernels.pair_sums import fused_pair_sums, pair_sums
 from .resample import grid_sample, grid_sample_nearest
 
@@ -70,8 +70,10 @@ def warp_points_with_flow(flow, x: torch.Tensor, y: torch.Tensor, orig_hw,
     grid = torch.stack([gx, gy], dim=-1)
 
     f = grid_sample(flow, grid)
-    out_x = x + f[..., 0] / (wf / w_orig)
-    out_y = y + f[..., 1] / (hf / h_orig)
+    # the ratio divides: a Python number over a tensor would be evaluated
+    # as w_orig.reciprocal() * wf
+    out_x = x + f[..., 0] / (w_orig.new_full((), wf) / w_orig)
+    out_y = y + f[..., 1] / (h_orig.new_full((), hf) / h_orig)
 
     mask_pts = None
     if mask is not None:
@@ -153,9 +155,12 @@ def fused_pair_geometry(coord_q, coord_k, feat_hw: tuple[int, int],
     inv_diag = (1.0 / torch.maximum(_diag(coord_q, h, w, w_orig, h_orig),
                                     _diag(coord_k, h, w, w_orig, h_orig))).reshape(b)
     pts_mask = None
-    if flow is not None:
-        q_x, q_y, m = warp_points_with_flow(
-            flow, q_x, q_y, (coord_q[:, 9], coord_q[:, 8]), flow_mask)
+    orig_hw = (coord_q[:, 9], coord_q[:, 8])
+    if isinstance(flow, LazyFlowUp) and flow_mask is None:
+        # the fused kernel writes K1's layout: [B, N] float32, contiguous
+        q_x, q_y, pts_mask = lazy_warp_points(flow, q_x, q_y, orig_hw)
+    elif flow is not None:
+        q_x, q_y, m = warp_points_with_flow(flow, q_x, q_y, orig_hw, flow_mask)
         if m is not None:
             pts_mask = m.reshape(b, n).to(torch.float32)
     flat = lambda t: t.reshape(b, n).contiguous()

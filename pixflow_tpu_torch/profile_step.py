@@ -6,7 +6,7 @@ Builds the recipe's trainer (synthetic data from a seed), runs two warm-up
 steps, then traces `--steps` telemetry-free steps with `torch.profiler`
 (CPU and CUDA activities) and prints one JSON line: host time per step, device
 busy time per step, the device's idle share, and device time per kernel
-family (convolution and matmul, the port's two CUDA kernels, BatchNorm and
+family (convolution and matmul, each of the port's CUDA kernels, BatchNorm and
 other elementwise work, optimizer). `--trace` also writes the Chrome trace."""
 
 from __future__ import annotations
@@ -25,6 +25,7 @@ from .train import build_trainer, run_steps, synthetic_batch
 FAMILIES = (
     ("pair_sums", ("pair_sums_kernel",)),
     ("point_sample", ("point_sample_kernel",)),
+    ("flow_up_points", ("flow_up_points_kernel",)),
     ("conv_matmul", ("conv", "gemm", "Conv", "xmma", "cutlass", "sm90", "cudnn",
                      "wgrad", "dgrad", "fprop", "implicit")),
     ("optimizer", ("foreach", "multi_tensor")),

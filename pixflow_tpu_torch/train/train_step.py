@@ -6,12 +6,14 @@ Order within a step, as in the JAX package and the reference:
     EMA of the momentum branch with the pre-step online weights ->
     flows -> LazyFlowUp (+ strided mask telemetry on logged steps) ->
     forward of both branches (bf16 autocast when the model says so) ->
-    pixel-pair loss (K1 on the card; the lazy flow reads go through K2) ->
+    pixel-pair loss (K1 on the card; the lazy flow points of each direction
+    come from one flow_up_points launch) ->
     backward -> LARS/SGD -> metrics.
 
 The step runs eagerly and updates the state's model and optimizer state in
-place. `plain_kernels=True` routes both kernel call sites to the kernels'
-plain PyTorch versions; it exists for comparison runs on the card
+place. `plain_kernels=True` routes every kernel call site (pair sums, the
+lazy flow evaluation and its telemetry) to the kernels' plain PyTorch
+versions; it exists for comparison runs on the card
 (`chip_smoke.py`), since on the CPU the wrappers take the plain versions by
 themselves."""
 
@@ -23,7 +25,7 @@ import torch
 
 from ..models.pixpro import ema_update, momentum_schedule
 from ..ops.flow_points import LazyFlowUp, mask_ratio_estimate
-from ..ops.kernels import pair_sums, pair_sums_plain, point_sample, point_sample_plain
+from ..ops.kernels import pair_sums, pair_sums_plain
 from .lars import LarsSgd
 from .state import TrainState
 
@@ -68,7 +70,6 @@ def make_train_step(
         raise NotImplementedError(
             "composition at the stored 1/8 resolution (ops/flow.py) is not "
             "ported yet; the port runs the lazy full-res flow_up path")
-    sampler = point_sample_plain if plain_kernels else point_sample
     sums_fn = pair_sums_plain if plain_kernels else pair_sums
     masked = alpha1 is not None and alpha2 is not None
 
@@ -88,7 +89,7 @@ def make_train_step(
             def lazy(f, r):
                 return LazyFlowUp(flows=f, flows_rev=r if masked else None,
                                   alpha1=alpha1, alpha2=alpha2,
-                                  is_norm=flow_cat_norm, sampler=sampler)
+                                  is_norm=flow_cat_norm, plain=plain_kernels)
 
             flow_fwd, flow_bwd = lazy(fwd, bwd), lazy(bwd, fwd)
             if flow_telemetry and masked:
@@ -97,7 +98,7 @@ def make_train_step(
                     mask_metrics = tuple(
                         torch.mean(mask_ratio_estimate(
                             a, b, alpha1, alpha2, flow_cat_norm,
-                            stride=MASK_RATIO_STRIDE, sampler=sampler))
+                            stride=MASK_RATIO_STRIDE, plain=plain_kernels))
                         for a, b in ((fwd, bwd), (bwd, fwd)))
 
         loss, stats = model(prep_images(batch["im1"]), prep_images(batch["im2"]),

@@ -10,8 +10,13 @@ PyTorch is installed:
 import pytest
 import torch
 
-from pixflow_tpu_torch.ops.kernels import (fused_pair_sums, pair_sums, pair_sums_plain,
+from pixflow_tpu_torch.configs import get_recipe
+from pixflow_tpu_torch.ops.kernels import (cycle_mask_points, cycle_mask_points_plain,
+                                           flow_up_points, flow_up_points_plain,
+                                           fused_pair_sums, pair_sums, pair_sums_plain,
                                            point_sample, point_sample_plain)
+from pixflow_tpu_torch.ops.loss import bin_centers
+from pixflow_tpu_torch.train import synthetic_batch
 
 pytestmark = pytest.mark.cuda
 
@@ -103,3 +108,92 @@ def test_point_sample_rejects_what_the_kernel_does_not_take(dev):
     with pytest.raises(ValueError):
         point_sample(field, pts[:1].contiguous(), 8)
     assert point_sample(field, torch.empty(2, 0, 2, device=dev), 8).shape == (2, 0, 2)
+
+
+# --- the fused lazy flow_up kernel ------------------------------------------
+
+A1, A2 = 0.01, 0.5
+
+
+def _lazy_inputs(dev, batch, orig_hw, seed):
+    """The recipe's flows (K=5, smooth, 1/8 of `orig_hw`) and its 49 query bin
+    centers per sample, from the synthetic batch."""
+    cfg = get_recipe("pretrain_bdd100k_2000ep_nframe6")
+    cfg.data.batch_size = batch
+    bt = {k: torch.as_tensor(v).to(dev) for k, v in
+          synthetic_batch(cfg, seed=seed, orig_hw=orig_hw).items()}
+    fwd = bt["flows_fwd"].transpose(0, 1).contiguous()
+    bwd = bt["flows_bwd"].transpose(0, 1).contiguous()
+    x, y = bin_centers(bt["coord1"], (7, 7))
+    c = bt["coord1"]
+    return fwd, bwd, x.reshape(batch, -1).contiguous(), y.reshape(batch, -1).contiguous(), \
+        c[:, 8], c[:, 9]
+
+
+# (batch, original frame): a small one, and the recipe's 64 x 720p
+LAZY_SHAPES = [(3, (96, 160)), (64, (720, 1280))]
+
+
+@pytest.mark.parametrize("is_norm", [False, True])
+@pytest.mark.parametrize("batch,orig_hw", LAZY_SHAPES)
+def test_flow_up_points_kernel_matches_plain(dev, batch, orig_hw, is_norm):
+    fwd, bwd, x, y, wo, ho = _lazy_inputs(dev, batch, orig_hw, seed=3)
+    before = flow_up_points.launches
+    got = flow_up_points(fwd, bwd, x, y, wo, ho, A1, A2, is_norm)
+    want = flow_up_points_plain(fwd, bwd, x, y, wo, ho, A1, A2, is_norm)
+    torch.cuda.synchronize()
+    assert flow_up_points.launches == before + 1
+    for g, w in zip(got, want):
+        assert g.shape == (batch, 49) and g.dtype == torch.float32 and g.is_contiguous()
+    # the plain version's contractions sum in another order (cuBLAS), and
+    # composition amplifies the last bits: positions within 1e-3 px
+    torch.testing.assert_close(got[0], want[0], rtol=0, atol=1e-3)
+    torch.testing.assert_close(got[1], want[1], rtol=0, atol=1e-3)
+    assert float((got[2] == want[2]).float().mean()) >= 0.995
+
+
+@pytest.mark.parametrize("is_norm", [False, True])
+@pytest.mark.parametrize("batch,orig_hw", LAZY_SHAPES)
+def test_cycle_mask_points_kernel_matches_plain(dev, batch, orig_hw, is_norm):
+    fwd, bwd, *_ = _lazy_inputs(dev, batch, orig_hw, seed=4)
+    hf, wf = 8 * fwd.shape[2], 8 * fwd.shape[3]
+    gy, gx = torch.meshgrid(torch.arange(0, hf, 8, device=dev, dtype=torch.float32),
+                            torch.arange(0, wf, 8, device=dev, dtype=torch.float32),
+                            indexing="ij")
+    pts = torch.stack([gx.reshape(-1), gy.reshape(-1)], -1)[None].expand(batch, -1, -1)
+    pts = pts.contiguous()
+    before = flow_up_points.launches
+    got = cycle_mask_points(fwd, bwd, pts, A1, A2, is_norm)
+    want = cycle_mask_points_plain(fwd, bwd, pts, A1, A2, is_norm)
+    torch.cuda.synchronize()
+    assert flow_up_points.launches == before + 1
+    assert got.shape == want.shape == pts.shape[:2]
+    assert float((got == want).float().mean()) >= 0.995
+    assert 0.0 < float(want.mean()) < 1.0
+
+
+def test_flow_up_points_without_mask(dev):
+    fwd, _, x, y, wo, ho = _lazy_inputs(dev, 3, (96, 160), seed=5)
+    out_x, out_y, mask = flow_up_points(fwd, None, x, y, wo, ho)
+    want = flow_up_points_plain(fwd, None, x, y, wo, ho)
+    assert mask is None and want[2] is None
+    torch.testing.assert_close(out_x, want[0], rtol=0, atol=1e-3)
+    torch.testing.assert_close(out_y, want[1], rtol=0, atol=1e-3)
+
+
+def test_flow_up_points_rejects_what_the_kernel_does_not_take(dev):
+    fwd, bwd, x, y, wo, ho = _lazy_inputs(dev, 2, (96, 160), seed=6)
+    with pytest.raises(ValueError):
+        flow_up_points(fwd.double(), bwd.double(), x, y, wo, ho, A1, A2)
+    with pytest.raises(ValueError):
+        flow_up_points(fwd, bwd, x.cpu(), y, wo, ho, A1, A2)
+    with pytest.raises(ValueError):
+        flow_up_points(fwd, bwd, x[:1].contiguous(), y[:1].contiguous(), wo, ho, A1, A2)
+    with pytest.raises(ValueError):
+        flow_up_points(fwd.transpose(2, 3), bwd, x, y, wo, ho, A1, A2)
+    with pytest.raises(ValueError):
+        flow_up_points(fwd, bwd, x, y, wo, ho)  # a mask needs its alphas
+    with pytest.raises(ValueError):
+        cycle_mask_points(fwd, bwd, torch.zeros(2, 5, 3, device=dev), A1, A2)
+    with pytest.raises(ValueError):
+        cycle_mask_points(fwd, None, torch.zeros(2, 5, 2, device=dev), A1, A2)

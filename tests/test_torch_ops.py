@@ -146,6 +146,56 @@ def test_warp_points_with_lazy_flow_matches_jax(masked):
         assert got[2] is None and want[2] is None
 
 
+def _smooth_flows(seed, k, b, h, w, amp):
+    rng = np.random.default_rng(seed)
+    yy, xx = np.meshgrid(np.linspace(0, 1, h), np.linspace(0, 1, w), indexing="ij")
+    a = rng.uniform(-1, 1, (k, b, 2, 4, 1, 1))
+    f = amp * (a[..., 0, :, :] + a[..., 1, :, :] * np.sin(3 * xx + a[..., 2, :, :])
+               * np.cos(2 * yy + a[..., 3, :, :]))
+    return np.ascontiguousarray(np.moveaxis(f, 2, -1)).astype(np.float32)
+
+
+@pytest.mark.parametrize("lazy", [False, True])
+def test_warp_points_at_another_original_size_matches_jax(lazy):
+    """Frames of 1080 x 1920 with flows of 720 x 1280: the flow is rescaled by
+    the ratio wf / W_orig, a true float32 division in the JAX package (720 /
+    1080 is 0.6666666865; a reciprocal times 720 gives 0.6666666269)."""
+    rng = np.random.default_rng(30)
+    # points near the origin, so that one ulp of the rescaled flow shows
+    x = rng.uniform(0, 40, (B, 7, 7)).astype(np.float32)
+    y = rng.uniform(0, 40, (B, 7, 7)).astype(np.float32)
+    orig = (np.full((B,), 1080, np.float32), np.full((B,), 1920, np.float32))
+    if not lazy:
+        flow = (60 + 20 * rng.standard_normal((B, 720, 1280, 2))).astype(np.float32)
+        got = tloss.warp_points_with_flow(T(flow), T(x), T(y), tuple(map(T, orig)))
+        want = jloss.warp_points_with_flow(J(flow), J(x), J(y), tuple(map(J, orig)))
+        # the same float32 expressions end to end: equal bits
+        np.testing.assert_array_equal(_np(got[0]), _np(want[0]))
+        np.testing.assert_array_equal(_np(got[1]), _np(want[1]))
+        return
+    fwd, bwd = _smooth_flows(31, 5, B, 90, 160, 1.0), _smooth_flows(32, 5, B, 90, 160, 1.0)
+    got = tfp.flow_up_warp_points(tfp.LazyFlowUp(T(fwd), T(bwd), A1, A2),
+                                  T(x), T(y), tuple(map(T, orig)))
+    want = jfp.flow_up_warp_points(
+        jfp.LazyFlowUp(flows=J(fwd), flows_rev=J(bwd), alpha1=A1, alpha2=A2),
+        J(x), J(y), tuple(map(J, orig)))
+    # the composed flows of the two packages differ in the last bits where
+    # their contractions sum in another order; where they agree bit for bit,
+    # the warped points must too
+    f32 = np.float32
+    fine = np.stack([((f32(2) * x / f32(1919) - f32(1)) + f32(1)) * f32(0.5) * f32(1279),
+                     ((f32(2) * y / f32(1079) - f32(1)) + f32(1)) * f32(0.5) * f32(719)],
+                    -1).reshape(B, -1, 2)
+    f_t = _np(tfp.composed_flow_at(T(fwd), T(fine)))
+    f_j = _np(jfp.composed_flow_at(J(fwd), J(fine)))
+    same = (f_t == f_j).all(-1).reshape(x.shape)
+    assert same.sum() >= 10
+    for g, w in zip(got[:2], want[:2]):
+        np.testing.assert_array_equal(_np(g)[same], _np(w)[same])
+        np.testing.assert_allclose(_np(g), _np(w), rtol=1e-4, atol=1e-3)
+    assert (_np(got[2]) == _np(want[2])).mean() > 0.995
+
+
 def test_pair_loss_geometry_and_loss_match_jax():
     rng = np.random.default_rng(12)
     fwd, bwd = _flows(10), _flows(11)
