@@ -4,11 +4,11 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `pixflow_tpu_torch/csrc`, holds each
-against its plain PyTorch version at the recipe's shapes (K1 pair sums, K2
-point sampling, and the fused lazy flow_up evaluation, which also times the
-path it replaced: the composition through 15 K2 launches), checks one
-float32 train step through the kernels against the same step through the
-plain versions, then trains the `pretrain_bdd100k_2000ep_nframe6` recipe at
+against its plain PyTorch version at the recipe's shapes (K1 pair sums and
+their backward, with dq alone and with dq and dk, K2 point sampling, and the
+fused lazy flow_up evaluation, which also times the path it replaced: the
+composition through 15 K2 launches), checks one float32 train step through
+the kernels against the same step through the plain versions, then trains the `pretrain_bdd100k_2000ep_nframe6` recipe at
 full width (ResNet-50, 224 px, per-card batch 64, K=5 flows of 90 x 160,
 bf16 autocast over f32 weights) for 2 warm-up and 10 timed steps on
 synthetic data made from a seed, and checks which kernels that run launched.
@@ -45,11 +45,18 @@ def nvidia_smi() -> str:
     return out.strip().splitlines()[0]
 
 
+_side_stream = []
+
+
 def cuda_ms(fn, iters=50) -> float:
     """Device time of one call: `iters` calls captured in a CUDA graph and
     replayed between CUDA events, so the host's launch cost (Python,
-    ctypes, the caching allocator) is out of the measurement."""
-    side = torch.cuda.Stream()
+    ctypes, the caching allocator) is out of the measurement. The warm-up
+    runs on one side stream for every call: cuBLAS keeps a workspace for
+    each stream it has run on, which would count in the recipe's peak."""
+    if not _side_stream:
+        _side_stream.append(torch.cuda.Stream())
+    side = _side_stream[0]
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):  # warm-up off the capture, as capture asks
         for _ in range(3):
@@ -92,9 +99,32 @@ def check(cond, what):
 
 # --- phase 2: kernels against their plain versions --------------------------
 
+def bf16_ulp(x):
+    x = x.float()
+    ulp = torch.ldexp(torch.ones_like(x), torch.frexp(x).exponent - 8)
+    return torch.where(x == 0, torch.zeros_like(x), ulp)
+
+
+def grad_off(got, want, mag) -> int:
+    """Elements of a gradient outside its tolerance against the plain
+    version's: f32 rtol 1e-5, atol 1e-6 max|want|; bf16 one bf16 ulp of the
+    plain result, or of `mag` (the sum of the element's terms' magnitudes)
+    where that is larger, since where terms cancel, another summation order
+    leaves another residue."""
+    check(got.dtype == want.dtype and got.shape == want.shape, "gradient dtype/shape differ")
+    w, err = want.float(), (got.float() - want.float()).abs()
+    if want.dtype == torch.float32:
+        allowed = 1e-5 * w.abs() + 1e-6 * float(w.abs().max())
+    else:
+        allowed = torch.maximum(bf16_ulp(w), bf16_ulp(mag))
+    return int((err > allowed).sum())
+
+
 def compare_pair_sums(dev, batch):
     from pixflow_tpu_torch.ops.flow_points import LazyFlowUp
-    from pixflow_tpu_torch.ops.kernels import fused_pair_sums, pair_sums, pair_sums_plain
+    from pixflow_tpu_torch.ops.kernels import (fused_pair_sums, pair_mask, pair_sums,
+                                               pair_sums_backward, pair_sums_backward_plain,
+                                               pair_sums_plain)
     from pixflow_tpu_torch.ops.loss import fused_pair_geometry
 
     b, n, c = batch["coord1"].shape[0], 49, 256
@@ -109,40 +139,80 @@ def compare_pair_sums(dev, batch):
     unit = lambda x: x / x.norm(dim=-1, keepdim=True)
     q32 = unit(base + 0.7 * torch.randn(b, n, c, device=dev, generator=gen))
     k32 = unit(base + 0.7 * torch.randn(b, n, c, device=dev, generator=gen))
+    geom_bytes = 5 * b * n * 4 + b * 4
     results = {}
     for dtype in (torch.float32, torch.bfloat16):
         before = pair_sums.launches
         q, k = q32.to(dtype).contiguous(), k32.to(dtype).contiguous()
         got = pair_sums(q, k, *geom, 0.7)
         want = pair_sums_plain(q, k, *geom, 0.7)
+        again = pair_sums(q, k, *geom, 0.7)
         torch.cuda.synchronize()
         check(torch.equal(got[:, 1], want[:, 1]), "pair_sums: mask sums differ")
         check(float(want[:, 1].min()) > 0, "pair_sums: a sample has no positive pair")
         err = float((got[:, 0] - want[:, 0]).abs().max())
         check(err <= 1e-5 * float(want[:, 0].abs().max()),
               f"pair_sums {dtype}: logit sums differ by {err}")
-        grads = []
-        for fn in (pair_sums, pair_sums_plain):
-            qg, kg = q.clone().requires_grad_(), k.clone().requires_grad_()
-            fused_pair_sums(qg, kg, *geom, 0.7, sums_fn=fn)[:, 0].sum().backward()
-            grads.append((qg.grad, kg.grad))
-        check(all(torch.equal(a, b) for a, b in zip(*grads)),
-              "pair_sums: gradients differ between kernel and plain forward")
+        check(torch.equal(got, again), "pair_sums: two runs differ")
 
         nnz = float(want[:, 1].sum())
         elt = q.element_size()
-        bytes_ = 2 * b * n * c * elt + 5 * b * n * 4 + b * 4 + b * 2 * 4
         peak = BF16_OPS_PER_S if dtype == torch.bfloat16 else F32_OPS_PER_S
-        ops_s = 2 * c * nnz / peak + 8 * b * n * n / F32_OPS_PER_S
-        bound = max(bytes_ / HBM_BYTES_PER_S, ops_s) * 1e3
-        results[str(dtype).replace("torch.", "")] = dict(
+        mask_ops_s = 8 * b * n * n / F32_OPS_PER_S
+        bytes_ = 2 * b * n * c * elt + geom_bytes + b * 2 * 4
+        ops_s = 2 * c * nnz / peak + mask_ops_s
+        entry = dict(
             max_abs_err=err, kernel_ms=cuda_ms(lambda: pair_sums(q, k, *geom, 0.7)),
             host_ms=host_ms(lambda: pair_sums(q, k, *geom, 0.7)),
             plain_ms=cuda_ms(lambda: pair_sums_plain(q, k, *geom, 0.7)),
-            bound_ms=bound,
+            bound_ms=max(bytes_ / HBM_BYTES_PER_S, ops_s) * 1e3,
             bound_by="bytes" if bytes_ / HBM_BYTES_PER_S >= ops_s else "operations",
             library_ms=None, positive_pairs=nnz,
             launches=pair_sums.launches - before)
+
+        # the backward at the cotangent the loss gives: -2 / (B (msum + 1e-6))
+        g = (-2.0 / (b * (want[:, 1] + 1e-6))).contiguous()
+        gm = g[:, None, None] * pair_mask(*geom, 0.7)
+        qf, kf = q.float(), k.float()
+        for mode, need_dk in (("dq", False), ("dq_dk", True)):
+            before = pair_sums_backward.launches
+            run = lambda: pair_sums_backward(q, k, *geom, g, 0.7, True, need_dk)
+            plain = lambda: pair_sums_backward_plain(q, k, *geom, g, 0.7, True, need_dk)
+            got_b, want_b, again_b = run(), plain(), run()
+            # |g M x_t| summed: the plain backward on magnitudes
+            mag_b = pair_sums_backward_plain(q.abs(), k.abs(), *geom, g.abs(), 0.7, True,
+                                             need_dk)
+            torch.cuda.synchronize()
+            outs = [(a, w, r) for a, w, r in zip(got_b, want_b, again_b) if w is not None]
+            check(len(outs) == 1 + need_dk and (need_dk or got_b[1] is None),
+                  f"pair_sums_backward {mode}: wrong outputs")
+            off = sum(grad_off(a, w, m) for (a, w, _), m in zip(outs, mag_b))
+            check(off == 0, f"pair_sums_backward {dtype} {mode}: {off} elements off")
+            check(all(torch.equal(a, r) for a, _, r in outs), "pair_sums_backward: two runs differ")
+            if need_dk:  # the two bmm calls alone, M given
+                lib = lambda: (torch.bmm(gm, kf), torch.bmm(gm.transpose(1, 2), qf))
+            else:
+                lib = lambda: torch.bmm(gm, kf)
+            bytes_ = (1 + need_dk) * 2 * b * n * c * elt + geom_bytes + b * 4
+            ops_s = (1 + need_dk) * 2 * c * nnz / peak + mask_ops_s
+            entry[f"backward_{mode}"] = dict(
+                max_abs_err=max(float((a.float() - w.float()).abs().max()) for a, w, _ in outs),
+                elements_bit_differ=sum(int((a != w).sum()) for a, w, _ in outs),
+                kernel_ms=cuda_ms(run), host_ms=host_ms(run), plain_ms=cuda_ms(plain),
+                bound_ms=max(bytes_ / HBM_BYTES_PER_S, ops_s) * 1e3,
+                bound_by="bytes" if bytes_ / HBM_BYTES_PER_S >= ops_s else "operations",
+                library_ms=cuda_ms(lib), launches=pair_sums_backward.launches - before)
+
+        # through autograd: the kernel halves against the plain halves
+        grads = []
+        for plain in (False, True):
+            qg, kg = q.clone().requires_grad_(), k.clone().requires_grad_()
+            fused_pair_sums(qg, kg, *geom, 0.7, plain=plain)[:, 0].sum().backward()
+            grads.append((qg.grad, kg.grad))
+        mag = pair_sums_backward_plain(q.abs(), k.abs(), *geom, torch.ones_like(g), 0.7)
+        off = sum(grad_off(a, w, m) for a, w, m in zip(*grads, mag))
+        check(off == 0, f"fused_pair_sums {dtype}: {off} gradient elements off")
+        results[str(dtype).replace("torch.", "")] = entry
     emit({"phase": "kernel_pair_sums", "shape": [b, n, c], **results})
     return results
 
@@ -294,6 +364,7 @@ def compare_flow_up_points(dev, batch):
 def step_parity(dev):
     from pixflow_tpu_torch.configs import get_recipe
     from pixflow_tpu_torch.models import init_momentum_from_online
+    from pixflow_tpu_torch.ops.kernels import pair_sums, pair_sums_backward
     from pixflow_tpu_torch.train import build_model, build_trainer, run_steps, synthetic_batch
 
     torch.backends.cudnn.deterministic = True  # identical convolutions in both runs
@@ -304,11 +375,14 @@ def step_parity(dev):
     model = build_model(cfg, dev)
     init_momentum_from_online(model)
     before = {k: v.detach().clone() for k, v in model.state_dict().items()}
-    runs = {}
+    runs, k1_launches = {}, {}
     for plain in (False, True):
         m = copy.deepcopy(model)
         tr = build_trainer(cfg, dev, STEPS_PER_EPOCH, model=m, plain_kernels=plain)
+        counts = [kern.launches for kern in (pair_sums, pair_sums_backward)]
         tr = run_steps(cfg, [batch], 1, dev, trainer=tr)
+        k1_launches["plain" if plain else "kernel"] = [
+            kern.launches - n for kern, n in zip((pair_sums, pair_sums_backward), counts)]
         runs[plain] = (tr.history[0], tr.state.model.state_dict())
     torch.backends.cudnn.deterministic = False
     (mk, sk), (mp, sp) = runs[False], runs[True]
@@ -327,7 +401,12 @@ def step_parity(dev):
           "pos_num_plain": [mp["pos_num_1"], mp["pos_num_2"]],
           "pos_num_rel_diff": pos_diff, "bn_stats_max_rel_err": stats_err,
           "param_update_max_rel_err": upd_err,
-          "mask_ratio_fwd": [mk["mask_ratio_fwd"], mp["mask_ratio_fwd"]]})
+          "mask_ratio_fwd": [mk["mask_ratio_fwd"], mp["mask_ratio_fwd"]],
+          "k1_launches_fwd_bwd": k1_launches})
+    # the kernel run through both K1 kernels, once per direction; the
+    # comparison run through neither
+    check(k1_launches == {"kernel": [2, 2], "plain": [0, 0]},
+          f"K1 launches in the parity runs: {k1_launches}")
     check(math.isfinite(mk["loss"]) and loss_rel <= 1e-4, f"step loss differs by {loss_rel}")
     check(all(d <= 5e-3 for d in pos_diff.values()), f"pos_num differs: {pos_diff}")
     check(mk["pos_num_1"] > 0 and mk["pos_num_2"] > 0, "no positive pairs")
@@ -376,7 +455,7 @@ def recipe_run(dev):
     n_tele = len(logged)
     # one flow_up_points launch per direction, one more per direction for the
     # telemetry of a logged step; K2 itself is off the path
-    expect = {"pair_sums": 2 * 12, "point_sample": 0,
+    expect = {"pair_sums": 2 * 12, "pair_sums_backward": 2 * 12, "point_sample": 0,
               "flow_up_points": 2 * 12 + 2 * n_tele}
     check(launches == expect, f"kernel launches {launches}, expected {expect}")
     total = sum(times)
@@ -419,21 +498,25 @@ def main():
     step_parity(dev)
     launches = recipe_run(dev)
 
-    def entry(name, replaces, launches, m):
-        return {"name": name, "route": "cuda", "source": f"pixflow_tpu_torch/csrc/{name}.cu",
+    def entry(name, source, replaces, launches, m):
+        return {"name": name, "route": "cuda", "source": f"pixflow_tpu_torch/csrc/{source}.cu",
                 "replaces": replaces, "launches": launches,
                 "max_abs_err": m["max_abs_err"], "ms": m["kernel_ms"],
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                 "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
 
-    # each kernel as the main path runs it: K1 on bf16 features, the fused
-    # flow_up evaluation on one direction's bin centers; K2 (off the path) at
-    # up=1, tent_warp_pallas's function
-    kernels = [entry("pair_sums", "pixflow_tpu/ops/pallas/pair_loss.py:36",
+    # each kernel as the main path runs it: K1 and its backward (dq alone:
+    # the key features are targets) on bf16 features, the fused flow_up
+    # evaluation on one direction's bin centers; K2 (off the path) at up=1,
+    # tent_warp_pallas's function
+    kernels = [entry("pair_sums", "pair_sums", "pixflow_tpu/ops/pallas/pair_loss.py:36",
                      launches["pair_sums"], k1["bfloat16"]),
-               entry("point_sample", "pixflow_tpu/ops/pallas/warp.py:50",
+               entry("pair_sums_backward", "pair_sums_bwd",
+                     "pixflow_tpu/ops/pallas/pair_loss.py:124",
+                     launches["pair_sums_backward"], k1["bfloat16"]["backward_dq"]),
+               entry("point_sample", "point_sample", "pixflow_tpu/ops/pallas/warp.py:50",
                      launches["point_sample"], k2["up1"]),
-               entry("flow_up_points", "pixflow_tpu/ops/pallas/warp.py:50",
+               entry("flow_up_points", "flow_up_points", "pixflow_tpu/ops/pallas/warp.py:50",
                      launches["flow_up_points"], fused["warp"])]
     emit({"kernels": kernels})
     print(card, flush=True)

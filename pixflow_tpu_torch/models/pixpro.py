@@ -15,13 +15,12 @@ and the lazy flow evaluation always run in float32."""
 from __future__ import annotations
 
 import math
-from typing import Callable, Optional
+from typing import Optional
 
 import numpy as np
 import torch
 from torch import nn
 
-from ..ops.kernels.pair_sums import pair_sums
 from ..ops.loss import l2_normalize, pixpro_pair_loss_fused, ppm_attention
 from .heads import MLP2d, dense
 from .resnet import make_resnet
@@ -122,11 +121,11 @@ class PixPro(nn.Module):
     # --- full loss (both views) ------------------------------------------
 
     def forward(self, im1, im2, coord1, coord2, flow_fwd=None, flow_bwd=None,
-                mask_fwd=None, mask_bwd=None, sums_fn: Callable = pair_sums):
+                mask_fwd=None, mask_bwd=None, plain: bool = False):
         """Symmetric PixPro loss over the two views; a flow (dense field or
-        `LazyFlowUp`) warps each query grid onto the other view. `sums_fn`
-        is K1's wrapper unless a comparison run passes its plain version.
-        Returns (loss, stats)."""
+        `LazyFlowUp`) warps each query grid onto the other view. `plain=True`
+        takes K1's plain versions, forward and backward, for a comparison
+        run. Returns (loss, stats)."""
         dev = im1.device.type
         with torch.autocast(dev, dtype=torch.bfloat16,
                             enabled=self.dtype == torch.bfloat16):
@@ -144,10 +143,10 @@ class PixPro(nn.Module):
         with torch.autocast(dev, enabled=False):
             loss_1, (pos_num_1, pos_mean_1) = pixpro_pair_loss_fused(
                 pred_1, proj_2_ng, coord1, coord2, self.pixpro_pos_ratio,
-                flow=flow_fwd, flow_mask=mask_fwd, sums_fn=sums_fn)
+                flow=flow_fwd, flow_mask=mask_fwd, plain=plain)
             loss_2, (pos_num_2, pos_mean_2) = pixpro_pair_loss_fused(
                 pred_2, proj_1_ng, coord2, coord1, self.pixpro_pos_ratio,
-                flow=flow_bwd, flow_mask=mask_bwd, sums_fn=sums_fn)
+                flow=flow_bwd, flow_mask=mask_bwd, plain=plain)
         stats = {"pos_num_1": pos_num_1, "pos_mean_1": pos_mean_1,
                  "pos_num_2": pos_num_2, "pos_mean_2": pos_mean_2}
         return loss_1 + loss_2, stats

@@ -13,12 +13,12 @@ against."""
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Optional
 
 import torch
 
 from .flow_points import LazyFlowUp, flow_up_warp_points, lazy_warp_points
-from .kernels.pair_sums import fused_pair_sums, pair_sums
+from .kernels.pair_sums import fused_pair_sums
 from .resample import grid_sample, grid_sample_nearest
 
 _NORM_EPS = 1e-12  # torch F.normalize default
@@ -169,19 +169,18 @@ def fused_pair_geometry(coord_q, coord_k, feat_hw: tuple[int, int],
 
 
 def pixpro_pair_loss_fused(q, k, coord_q, coord_k, pos_ratio: float = 0.5,
-                           flow=None, flow_mask=None,
-                           sums_fn: Callable = pair_sums):
+                           flow=None, flow_mask=None, plain: bool = False):
     """The pair loss over K1 (`kernels.fused_pair_sums`), same signature and
     return contract as `pixpro_pair_loss`. The mask uses the kernel's
     `dist * inv_diag < pos_ratio`; the mask sum is a constant of the
-    gradient (stop-gradient in the denominator). `sums_fn` is K1's wrapper
-    unless a comparison run passes the plain version."""
+    gradient (stop-gradient in the denominator). `plain=True` takes K1's
+    plain versions, forward and backward, for a comparison run."""
     b, h, w, c = q.shape
     n = h * w
     geometry = fused_pair_geometry(coord_q, coord_k, (h, w), flow, flow_mask)
     sums = fused_pair_sums(q.reshape(b, n, c).contiguous(),
                            k.reshape(b, n, c).contiguous(),
-                           *geometry, pos_ratio, sums_fn)
+                           *geometry, pos_ratio, plain)
     pos_sum = sums[:, 1].detach()
     per_sample = sums[:, 0] / (pos_sum + 1e-6)
     loss = -2.0 * torch.mean(per_sample)

@@ -8,12 +8,12 @@ Order within a step, as in the JAX package and the reference:
     forward of both branches (bf16 autocast when the model says so) ->
     pixel-pair loss (K1 on the card; the lazy flow points of each direction
     come from one flow_up_points launch) ->
-    backward -> LARS/SGD -> metrics.
+    backward (K1's backward kernel on the card) -> LARS/SGD -> metrics.
 
 The step runs eagerly and updates the state's model and optimizer state in
-place. `plain_kernels=True` routes every kernel call site (pair sums, the
-lazy flow evaluation and its telemetry) to the kernels' plain PyTorch
-versions; it exists for comparison runs on the card
+place. `plain_kernels=True` routes every kernel call site (pair sums and
+their backward, the lazy flow evaluation and its telemetry) to the kernels'
+plain PyTorch versions; it exists for comparison runs on the card
 (`chip_smoke.py`), since on the CPU the wrappers take the plain versions by
 themselves."""
 
@@ -25,7 +25,6 @@ import torch
 
 from ..models.pixpro import ema_update, momentum_schedule
 from ..ops.flow_points import LazyFlowUp, mask_ratio_estimate
-from ..ops.kernels import pair_sums, pair_sums_plain
 from .lars import LarsSgd
 from .state import TrainState
 
@@ -70,7 +69,6 @@ def make_train_step(
         raise NotImplementedError(
             "composition at the stored 1/8 resolution (ops/flow.py) is not "
             "ported yet; the port runs the lazy full-res flow_up path")
-    sums_fn = pair_sums_plain if plain_kernels else pair_sums
     masked = alpha1 is not None and alpha2 is not None
 
     def step_fn(state: TrainState, batch: dict):
@@ -103,7 +101,7 @@ def make_train_step(
 
         loss, stats = model(prep_images(batch["im1"]), prep_images(batch["im2"]),
                             batch["coord1"], batch["coord2"], flow_fwd, flow_bwd,
-                            sums_fn=sums_fn)
+                            plain=plain_kernels)
 
         params = dict(model.named_parameters())
         names = list(state.opt_state.momentum)

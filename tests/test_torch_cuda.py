@@ -13,7 +13,8 @@ import torch
 from pixflow_tpu_torch.configs import get_recipe
 from pixflow_tpu_torch.ops.kernels import (cycle_mask_points, cycle_mask_points_plain,
                                            flow_up_points, flow_up_points_plain,
-                                           fused_pair_sums, pair_sums, pair_sums_plain,
+                                           fused_pair_sums, pair_sums, pair_sums_backward,
+                                           pair_sums_backward_plain, pair_sums_plain,
                                            point_sample, point_sample_plain)
 from pixflow_tpu_torch.ops.loss import bin_centers
 from pixflow_tpu_torch.train import synthetic_batch
@@ -59,14 +60,47 @@ def test_pair_sums_kernel_matches_plain(dev, dtype, b, n, c, with_mask):
     assert torch.equal(got, again)  # fixed-order reduction: identical bits
 
 
+def _bf16_ulp(x):
+    x = x.float()
+    ulp = torch.ldexp(torch.ones_like(x), torch.frexp(x).exponent - 8)
+    return torch.where(x == 0, torch.zeros_like(x), ulp)
+
+
+def _magnitudes(args, g, need_dq=True, need_dk=True):
+    """For each gradient element, the sum of its terms' magnitudes |g M x_t|:
+    the plain backward on |q|, |k| and |g| (M and pts_mask are >= 0)."""
+    q, k, *geometry = args
+    return pair_sums_backward_plain(q.abs(), k.abs(), *geometry, g.abs(), 0.7,
+                                    need_dq, need_dk)
+
+
+def assert_grad_close(got, want, mag):
+    """f32: rtol 1e-5, atol 1e-6 max|want|. bf16: each element within one
+    bf16 ulp of the plain version's, or one ulp of `mag` (the sum of its
+    terms' magnitudes) where that is larger. The kernel runs the plain
+    version's ascending f32 FMA chain with its zero terms left out, and
+    matches it to the bit at the tested shapes; but that order is cuBLAS's
+    choice, and where the terms cancel, another order leaves another residue."""
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if want.dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5,
+                                   atol=1e-6 * float(want.abs().max()))
+        return
+    allowed = torch.maximum(_bf16_ulp(want), _bf16_ulp(mag))
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= allowed).all()), f"{int((err > allowed).sum())} elements off by > 1 ulp"
+
+
 def test_pair_sums_gradients_in_input_dtype(dev):
     args = _pair_inputs(dev, 4, 49, 64, torch.bfloat16)
     q, k = args[0].clone().requires_grad_(), args[1].clone().requires_grad_()
     fused_pair_sums(q, k, *args[2:], 0.7)[:, 0].sum().backward()
     assert q.grad.dtype == torch.bfloat16 and k.grad.dtype == torch.bfloat16
     qp, kp = args[0].clone().requires_grad_(), args[1].clone().requires_grad_()
-    fused_pair_sums(qp, kp, *args[2:], 0.7, sums_fn=pair_sums_plain)[:, 0].sum().backward()
-    assert torch.equal(q.grad, qp.grad) and torch.equal(k.grad, kp.grad)
+    fused_pair_sums(qp, kp, *args[2:], 0.7, plain=True)[:, 0].sum().backward()
+    mag = _magnitudes(args, torch.ones(4, device=dev))
+    assert_grad_close(q.grad, qp.grad, mag[0])
+    assert_grad_close(k.grad, kp.grad, mag[1])
 
 
 def test_pair_sums_rejects_what_the_kernel_does_not_take(dev):
@@ -77,6 +111,78 @@ def test_pair_sums_rejects_what_the_kernel_does_not_take(dev):
         pair_sums(args[0].transpose(1, 2).contiguous().transpose(1, 2), *args[1:], 0.7)
     with pytest.raises(ValueError):
         pair_sums(args[0], args[1].cpu(), *args[2:], 0.7)
+
+
+@pytest.mark.parametrize("need_dk", [False, True])
+@pytest.mark.parametrize("with_mask", [False, True])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,n,c", [(64, 49, 256), (3, 5, 300), (2, 100, 8)])
+def test_pair_sums_backward_kernel_matches_plain(dev, dtype, b, n, c, with_mask, need_dk):
+    args = _pair_inputs(dev, b, n, c, dtype, with_mask)
+    g = torch.randn(b, 2, device=dev, generator=torch.Generator(device=dev).manual_seed(9))
+    g = g[:, 0]  # strided, as autograd hands it over
+    before = pair_sums_backward.launches
+    got = pair_sums_backward(*args, g, 0.7, True, need_dk)
+    want = pair_sums_backward_plain(*args, g, 0.7, True, need_dk)
+    torch.cuda.synchronize()
+    assert pair_sums_backward.launches == before + 1
+    mag = _magnitudes(args, g, True, need_dk)
+    assert_grad_close(got[0], want[0], mag[0])
+    if need_dk:
+        assert_grad_close(got[1], want[1], mag[1])
+    else:
+        assert got[1] is None
+    again = pair_sums_backward(*args, g, 0.7, True, need_dk)
+    assert all(a is None or torch.equal(a, r) for a, r in zip(got, again))  # identical bits
+
+
+def test_pair_sums_mask_at_the_threshold(dev):
+    """Query centers ulp by ulp either side of pos_ratio / inv_diag: the
+    kernels must give the plain version's mask to the bit, also for a sample
+    with inv_diag 0 (every pair positive)."""
+    b, n, c = 8, 64, 16
+    g = torch.Generator(device=dev).manual_seed(4)
+    inv = 1.0 / (40 + 50 * torch.rand(b, device=dev, generator=g))
+    inv[-1] = 0.0
+    edge = (0.7 / inv[:-1]).view(b - 1, 1).view(torch.int32)
+    steps = torch.arange(-n // 2, n - n // 2, device=dev, dtype=torch.int32)
+    qx = torch.cat([(edge + steps).view(torch.float32),
+                    torch.rand(1, n, device=dev, generator=g)]).contiguous()
+    zeros = torch.zeros(b, n, device=dev)
+    ky = (1e-3 * torch.arange(n, device=dev, dtype=torch.float32)).expand(b, n).contiguous()
+    q, k = (torch.randn(b, n, c, device=dev, generator=g) for _ in range(2))
+    args = (q, k, qx, zeros, zeros.clone(), ky, inv, None)
+    got, want = pair_sums(*args, 0.7), pair_sums_plain(*args, 0.7)
+    assert torch.equal(got[:, 1], want[:, 1])
+    assert 0 < float(want[:-1, 1].min()) and float(want[:-1, 1].max()) < n * n
+    gb = torch.ones(b, device=dev)
+    for a, w in zip(pair_sums_backward(*args, gb, 0.7), pair_sums_backward_plain(*args, gb, 0.7)):
+        assert torch.equal(a, w)
+
+
+def test_pair_sums_backward_dk_alone(dev):
+    args = _pair_inputs(dev, 4, 49, 64, torch.bfloat16)
+    g = torch.linspace(-1, 1, 4, device=dev)
+    dq, dk = pair_sums_backward(*args, g, 0.7, False, True)
+    assert dq is None
+    assert_grad_close(dk, pair_sums_backward_plain(*args, g, 0.7, False, True)[1],
+                      _magnitudes(args, g, False, True)[1])
+
+
+def test_pair_sums_backward_rejects_what_the_kernel_does_not_take(dev):
+    args = list(_pair_inputs(dev, 2, 9, 16, torch.float32))
+    g = torch.ones(2, device=dev)
+    with pytest.raises(ValueError):
+        pair_sums_backward(args[0].half(), args[1].half(), *args[2:], g, 0.7)
+    with pytest.raises(ValueError):
+        pair_sums_backward(args[0].transpose(1, 2).contiguous().transpose(1, 2), *args[1:],
+                           g, 0.7)
+    with pytest.raises(ValueError):
+        pair_sums_backward(args[0], args[1].cpu(), *args[2:], g, 0.7)
+    with pytest.raises(ValueError):
+        pair_sums_backward(*args, g.cpu(), 0.7)
+    with pytest.raises(ValueError):
+        pair_sums_backward(*args, g.double(), 0.7)
 
 
 @pytest.mark.parametrize("up", [1, 8])
