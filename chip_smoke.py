@@ -12,6 +12,12 @@ the kernels against the same step through the plain versions, then trains the `p
 full width (ResNet-50, 224 px, per-card batch 64, K=5 flows of 90 x 160,
 bf16 autocast over f32 weights) for 2 warm-up and 10 timed steps on
 synthetic data made from a seed, and checks which kernels that run launched.
+Last, the `cli` phase trains the same recipe from files: it writes a
+synthetic BDD100k-shaped corpus (720 x 1280 JPEG frames, six a video, and
+.pth flows), times the port's loader alone, then runs
+`python -m pixflow_tpu_torch.main_pretrain` for two epochs and again with
+`--auto-resume` for a third, and checks the logged metrics, the
+checkpoints, the kernel launches and the step-exact resume.
 Each phase prints one JSON line; then come the `kernels` line, the card's
 `nvidia-smi` name and power limit, and last `{"ok": true, "device": ...}`.
 Any failed check raises: no `ok` line and a non-zero exit. Without a CUDA
@@ -20,8 +26,11 @@ device it exits non-zero at once."""
 import copy
 import json
 import math
+import os
+import signal
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -29,6 +38,9 @@ import torch
 
 RECIPE = "pretrain_bdd100k_2000ep_nframe6"
 STEPS_PER_EPOCH = 68        # BDD100k nframe6 at global batch 1024, as bench.py
+REPO = os.path.dirname(os.path.abspath(__file__))
+CLI_VIDEOS = 4 * 64         # the cli phase's corpus: 4 steps an epoch at batch 64
+CLI_FRAME_HW = (720, 1280)  # BDD100k's frames
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM published peaks
 F32_OPS_PER_S = 67e12
 BF16_OPS_PER_S = 989e12
@@ -468,7 +480,162 @@ def recipe_run(dev):
           "step_ms_max": 1e3 * max(times), "img_per_s": b * len(times) / total,
           "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
           "launches": launches, "logged": logged, "card": nvidia_smi()})
-    return launches
+    return launches, 1e3 * float(np.median(times))
+
+
+# --- phase 5: the CLI, training from files -----------------------------------
+
+def run_cli(args, timeout):
+    """`python -m pixflow_tpu_torch.main_pretrain ARGS` in its own process
+    group, which is killed whole (forked decode workers too) on timeout."""
+    proc = subprocess.Popen([sys.executable, "-m", "pixflow_tpu_torch.main_pretrain", *args],
+                            cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True, start_new_session=True)
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        os.killpg(proc.pid, signal.SIGKILL)
+        proc.communicate()
+        raise AssertionError(f"main_pretrain {' '.join(args)}: no end in {timeout} s")
+    check(proc.returncode == 0,
+          f"main_pretrain exited {proc.returncode}:\n{err[-4000:]}")
+    return out
+
+
+def read_cli_run(out_dir):
+    """(metrics records, kernel launch counts of each run) from the CLI's
+    metrics.jsonl and log."""
+    with open(os.path.join(out_dir, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    with open(os.path.join(out_dir, "log.txt")) as f:
+        counts = [json.loads(line.split("kernel launches: ", 1)[1])
+                  for line in f if "kernel launches: " in line]
+    return recs, counts
+
+
+def sample_costs(dataset, n=32) -> dict:
+    """Host ms per sample of each part of a loader sample, in this process,
+    over the first `n` videos: the two frame decodes, the two views'
+    transforms, the two flow-file reads, a whole sample, and the pickle
+    round trip a process worker's sample makes."""
+    import pickle
+    import random
+
+    from pixflow_tpu_torch.data.datasets import load_flow_file, load_image
+
+    t1, t2 = dataset.transform
+    parts = dict.fromkeys(("decode_2_frames", "transforms_2_views", "flows_2_files",
+                           "whole_sample", "pickle_round_trip"), 0.0)
+    videos = dataset.samples[:n]
+    for i, video in enumerate(videos):
+        name = os.path.basename(os.path.dirname(video[0][0]))
+        t = time.perf_counter()
+        first, last = load_image(video[0][0]), load_image(video[-1][0])
+        parts["decode_2_frames"] += time.perf_counter() - t
+        rng = random.Random(i)
+        t = time.perf_counter()
+        t1(first, rng)
+        t2(last, rng)
+        parts["transforms_2_views"] += time.perf_counter() - t
+        t = time.perf_counter()
+        for root in (dataset.flow_fwd_root, dataset.flow_bwd_root):
+            load_flow_file(os.path.join(root, name + dataset.flow_ext), 0, len(video) - 1)
+        parts["flows_2_files"] += time.perf_counter() - t
+        t = time.perf_counter()
+        sample = dataset.__getitem__(i, random.Random(i))
+        parts["whole_sample"] += time.perf_counter() - t
+        t = time.perf_counter()
+        pickle.loads(pickle.dumps(sample))
+        parts["pickle_round_trip"] += time.perf_counter() - t
+    return {k: 1e3 * v / len(videos) for k, v in parts.items()}
+
+
+def cli_run(recipe_step_ms, extra_args=()):
+    from pixflow_tpu_torch.configs import get_recipe
+    from pixflow_tpu_torch.data import build_pretrain_loader
+    from pixflow_tpu_torch.data.synthetic import write_video_corpus
+    from pixflow_tpu_torch.train import make_lr_schedule, scale_lr
+
+    cores = len(os.sched_getaffinity(0))
+    workers = max(cores - 2, 1)
+    cfg = get_recipe(RECIPE)
+    b = cfg.data.batch_size
+    with tempfile.TemporaryDirectory(prefix="pixflow_cli_") as tmp:
+        t0 = time.perf_counter()
+        corpus_bytes = write_video_corpus(os.path.join(tmp, "bdd"), 6, frame_hw=CLI_FRAME_HW,
+                                          seed=0, quality=90, n_videos=CLI_VIDEOS,
+                                          workers=cores)
+        corpus_s = time.perf_counter() - t0
+        data_dir = os.path.join(tmp, "bdd", "images")
+
+        # the loader alone at the recipe's settings, on the host
+        cfg.data.data_dir, cfg.data.num_workers = data_dir, workers
+        loader_rate = {}
+        for mode in ("process", "thread"):
+            cfg.data.worker_mode = mode
+            loader = build_pretrain_loader(cfg, global_batch_size=b)
+            loader.start_workers()
+            try:
+                t = time.perf_counter()
+                n = sum(len(batch["index"]) for batch in loader.epoch(1))
+                loader_rate[mode] = n / (time.perf_counter() - t)
+            finally:
+                loader.close()
+        steps = len(loader)
+        check(steps >= 2, f"{steps} steps an epoch")
+        costs = sample_costs(loader.dataset)
+
+        out_dir = os.path.join(tmp, "out")
+        args = ["--recipe", RECIPE, "--data-dir", data_dir, "--output-dir", out_dir,
+                "--print-freq", "1", "--save-freq", "1", "--num-workers", str(workers),
+                "--worker-mode", "process", *extra_args]
+        t = time.perf_counter()
+        run_cli([*args, "--debug-epochs", "2"], timeout=420)
+        first_s = time.perf_counter() - t
+        recs, counts = read_cli_run(out_dir)
+        check(len(recs) == 2 * steps and [r["step"] for r in recs] == list(range(1, 2 * steps + 1)),
+              f"first run logged steps {[r['step'] for r in recs]}, expected 1..{2 * steps}")
+        for name in ("ckpt_epoch_1.pth", "ckpt_epoch_2.pth", "current.pth"):
+            check(os.path.exists(os.path.join(out_dir, name)), f"no {name}")
+        t = time.perf_counter()
+        run_cli([*args, "--debug-epochs", "1", "--auto-resume"], timeout=420)
+        resume_s = time.perf_counter() - t
+        recs, counts = read_cli_run(out_dir)
+
+        # every step logged (print_freq 1): two flow_up_points launches a
+        # step, two more for the telemetry of a logged step
+        expect = [{"pair_sums": 2 * n, "pair_sums_backward": 2 * n, "point_sample": 0,
+                   "flow_up_points": 4 * n} for n in (2 * steps, steps)]
+        check([r["step"] for r in recs] == list(range(1, 3 * steps + 1)),
+              f"logged steps {[r['step'] for r in recs]}, expected 1..{3 * steps}")
+        for r in recs:
+            check(math.isfinite(r["loss"]), f"non-finite loss at step {r['step']}")
+            check(r["pos_num"] > 0, f"no positive pairs at step {r['step']}")
+            for key in ("mask_ratio_fwd", "mask_ratio_bwd"):
+                check(0.0 <= r[key] <= 0.5, f"{key} {r[key]} at step {r['step']}")
+        lr = make_lr_schedule(cfg.optim.lr_scheduler, scale_lr(cfg.optim.base_lr, b),
+                              cfg.optim.epochs, cfg.optim.warmup_epoch, steps,
+                              cfg.optim.warmup_multiplier, cfg.optim.lr_decay_epochs,
+                              cfg.optim.lr_decay_rate)
+        first_resumed = recs[2 * steps]
+        check(first_resumed["epoch"] == 3 and first_resumed["lr"] == lr(2 * steps),
+              f"first resumed step: {first_resumed}, schedule lr {lr(2 * steps)}")
+        check(counts == expect, f"kernel launches {counts}, expected {expect}")
+
+        epoch2 = [r["time"] for r in recs if r["epoch"] == 2]
+        step_ms = 1e3 * float(np.median(epoch2))
+        emit({"phase": "cli", "recipe": RECIPE, "videos": CLI_VIDEOS, "frame_hw": CLI_FRAME_HW,
+              "corpus_bytes": corpus_bytes, "corpus_write_s": corpus_s,
+              "cpu_count": os.cpu_count(), "affinity": cores, "workers": workers,
+              "loader_samples_per_s": loader_rate, "sample_host_ms": costs,
+              "steps_per_epoch": steps,
+              "first_run_s": first_s, "resume_run_s": resume_s,
+              "step_ms_median_epoch2": step_ms, "step_ms_epoch2": [1e3 * x for x in epoch2],
+              "img_per_s": b / (step_ms / 1e3),
+              "recipe_step_ms_median_synthetic": recipe_step_ms,
+              "peak_mem_mb": max(r.get("peak_memory_mb", 0.0) for r in recs),
+              "launches": counts, "first_resumed": first_resumed,
+              "losses": [r["loss"] for r in recs], "card": nvidia_smi()})
 
 
 def main():
@@ -496,7 +663,9 @@ def main():
     k2 = compare_point_sample(dev, batch)
     fused = compare_flow_up_points(dev, batch)
     step_parity(dev)
-    launches = recipe_run(dev)
+    launches, recipe_step_ms = recipe_run(dev)
+    torch.cuda.empty_cache()  # the CLI's process needs the card's memory
+    cli_run(recipe_step_ms)
 
     def entry(name, source, replaces, launches, m):
         return {"name": name, "route": "cuda", "source": f"pixflow_tpu_torch/csrc/{source}.cu",

@@ -2,11 +2,18 @@
 `pixflow_tpu/configs/config.py` (same sections, fields and defaults, so a
 `config.json` written by either package loads in the other).
 
-Fields that only the JAX package reads so far (loader backends, checkpoint
-backends, live RAFT) are kept so the two stay interchangeable; the port
-reads so far `data.batch_size/image_size/n_frames`, `flow.*` for the
-lazy flow_up path, `model.*`, `optim.*`, and `runtime.compute_dtype/seed/
-print_freq`."""
+Every field is kept so the two stay interchangeable. The port reads
+`data.*` (the loader, `train/driver.py:train`), `flow.*` for file flows
+on the lazy flow_up path, `model.*`, `optim.*` and `runtime.*`, where
+`checkpoint_backend="msgpack"` names the single-file backend (written
+with `torch.save` here). Settings whose path is not ported raise
+NotImplementedError (`train/driver.py:check_ported`): `data.device_aug`,
+`data.loader_backend="grain"`, live RAFT (`flow.use_flow` without
+`use_flow_file`, and `flow_model/small/flow_bs/raft_*`), multi-span,
+`flow_up` without `flow_up_lazy` or composition without `flow_up`,
+`runtime.mask_ratio_exact`, `checkpoint_backend="orbax"`, `mesh_shape` > 1,
+`wandb` and `debug`; `runtime.preempt_vote_steps` has no use in one
+process."""
 
 from __future__ import annotations
 

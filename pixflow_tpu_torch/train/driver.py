@@ -1,15 +1,24 @@
-"""Pretraining driver: config -> model -> optimizer -> step
-loop on one device. The port of `pixflow_tpu/train/driver.py`'s
-`build_model`, `build_optimizer` and inner step loop; the data loader,
-checkpoints and the CLI are not ported yet, so batches here come from
-the caller or from `synthetic_batch`.
+"""Pretraining driver: config -> loader -> model -> optimizer -> epochs on
+one device. The port of `pixflow_tpu/train/driver.py` for one process:
+`train` builds the loader from the config, the PixPro model and LARS/SGD
+with the loader's steps per epoch, then runs the epoch loop with
+auto-resume, step-exact preemption saves, checkpoints and per-step metric
+logging. `build_trainer`/`run_steps` drive the same step on batches the
+caller gives, such as `synthetic_batch`.
 
-Logged steps (every `runtime.print_freq`) run the variant of the step with
-the strided mask-ratio telemetry and read the metrics back to the host;
-the others run the telemetry-free variant and do not wait for the device."""
+Logged steps (every `runtime.print_freq`, and the last of an epoch) run the
+variant of the step with the strided mask-ratio telemetry and read the
+metrics back to the host; the others run the telemetry-free variant and do
+not wait for the device. Batches cross to the card from pinned host memory
+without waiting (`to_device`)."""
 
 from __future__ import annotations
 
+import json
+import os
+import signal
+import threading
+import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional, Sequence
 
@@ -17,8 +26,15 @@ import numpy as np
 import torch
 
 from ..configs import PretrainConfig
+from ..data import build_pretrain_loader
+from ..data.datasets import frame_stats
 from ..device import resolve_device
 from ..models import PixPro
+from ..ops.kernels import KERNELS
+from ..utils import (AverageMeter, latest_checkpoint, load_checkpoint,
+                     save_checkpoint, setup_logger)
+from ..utils.checkpoint import load_published
+from ..utils.metrics_writer import MetricsWriter
 from .lars import LarsSgd, frozen_momentum_branch_names, lars_sgd, sgd
 from .schedule import make_lr_schedule, scale_lr
 from .state import TrainState, create_train_state
@@ -104,8 +120,17 @@ def build_trainer(cfg: PretrainConfig, device=None, steps_per_epoch: int = 1,
 
 
 def to_device(batch: dict, device) -> dict:
-    return {k: torch.as_tensor(v).to(device, non_blocking=True)
-            for k, v in batch.items()}
+    """Tensors on `device`. For the card, host arrays go through pinned
+    memory and the copies do not wait: the caching host allocator keeps a
+    pinned block until its copy has run."""
+    dev = torch.device(device)
+    out = {}
+    for k, v in batch.items():
+        t = torch.as_tensor(v)
+        if dev.type == "cuda" and t.device.type == "cpu":
+            t = t.pin_memory()
+        out[k] = t.to(dev, non_blocking=True)
+    return out
 
 
 def run_steps(cfg: PretrainConfig, batches: Sequence[dict], n_steps: int,
@@ -180,3 +205,269 @@ def synthetic_batch(cfg: PretrainConfig, seed: int,
         batch["flows_fwd"] = np.ascontiguousarray(fwd)
         batch["flows_bwd"] = np.ascontiguousarray(bwd)
     return batch
+
+
+# --- the training entry point -------------------------------------------------
+
+def check_ported(cfg: PretrainConfig) -> None:
+    """Raise NotImplementedError, naming its ROADMAP.md item, for every
+    setting whose path the port does not have yet: no other path runs in
+    its place."""
+    d, f, r = cfg.data, cfg.flow, cfg.runtime
+    missing = [
+        (d.device_aug, "--device-aug (item 3, with ops/augment.py)"),
+        (r.mask_ratio_exact, "--mask-ratio-exact (item 3, ops/flow.py)"),
+        (f.use_flow and f.use_flow_frames and d.n_frames > 2,
+         "--use_flow_frames with n_frames > 2, multi-span (item 3)"),
+        (f.use_flow and not f.use_flow_file,
+         "--use_flow without --use_flow_file, live RAFT (item 6)"),
+        (f.use_flow and f.use_flow_file and not f.flow_up,
+         "flows composed at 1/8 resolution without --flow_up (item 3, ops/flow.py)"),
+        (f.use_flow and f.use_flow_file and f.flow_up and not f.flow_up_lazy,
+         "--flow_up with --no-flow_up_lazy, the materializing path (item 3)"),
+        (r.checkpoint_backend == "orbax", "--checkpoint-backend orbax (item 4)"),
+        (d.loader_backend == "grain", "--loader-backend grain (item 4)"),
+        (r.mesh_shape is not None and r.mesh_shape > 1,
+         "--mesh-shape > 1, data parallelism (item 4)"),
+        (r.wandb, "--wandb (item 1, left out of the port's CLI)"),
+        (r.debug, "--debug, utils/visualize.py (item 7)"),
+    ]
+    for unported, what in missing:
+        if unported:
+            raise NotImplementedError(f"{what} is not ported (ROADMAP.md, Queue 1)")
+
+
+def _verbose_dump(batch, n_frames: int):
+    """--verbose: raw numeric dumps from the flow path, the reference's
+    debug-print-for-raft flag (`contrast/option.py:79`). Each array prints
+    dtype/shape/min/max/mean plus its first 8 raw values (the JAX driver's
+    bounded form of the reference's whole-tensor prints)."""
+    for key in ("frames", "flows_fwd", "flows_bwd", "im1", "im2",
+                "ims1", "ims2"):
+        if key not in batch:
+            continue
+        a = np.asarray(batch[key])
+        head = np.array2string(a.reshape(-1)[:8], precision=4, separator=", ")
+        print(f"rank: 0 {key}: {a.dtype} {tuple(a.shape)} "
+              f"min {float(a.min()):.5g} max {float(a.max()):.5g} "
+              f"mean {float(a.mean(dtype=np.float64)):.5g} head {head}",
+              flush=True)
+    for key in ("coord1", "coord2", "coords1", "coords2"):
+        if key in batch:
+            a = np.asarray(batch[key])
+            print(f"rank: 0 {key}: {a.dtype} {tuple(a.shape)}",
+                  np.round(a.reshape(a.shape[0], -1), 4).tolist(), flush=True)
+    print(f"rank: 0 n_frames: {n_frames}", flush=True)
+
+
+def _peak_memory_mb(dev: torch.device) -> Optional[float]:
+    """Peak bytes allocated on the card (the reference's
+    max_memory_allocated log field); None on the CPU."""
+    if dev.type != "cuda":
+        return None
+    return torch.cuda.max_memory_allocated(dev) / 1e6
+
+
+def _warm_start(model: PixPro, path: str, logger) -> None:
+    """Published weights (reference load_pretrained, `main_pretrain.py:86-93`):
+    the model's parameters and BatchNorm buffers that the file names; the
+    optimizer starts fresh."""
+    pub = load_published(path)
+    own = model.state_dict()
+    found = {k: v for k, v in pub["model"].items() if k in own}
+    model.load_state_dict(found, strict=False)
+    logger.info("loaded pretrained model %s (epoch %s, %d tensors)",
+                path, pub.get("epoch"), len(found))
+
+
+def train(cfg: PretrainConfig, device=None, model: Optional[PixPro] = None) -> TrainState:
+    """Pretrain on one device (`cuda` unless told otherwise) from the files
+    the config names; returns the final TrainState. `model` takes an
+    already built PixPro, e.g. with weights carried over from the JAX
+    package, in place of a seeded one."""
+    check_ported(cfg)
+    dev = resolve_device(device)
+    # preemption-safe checkpointing: on SIGTERM, finish the in-flight step,
+    # save, and return so that --auto-resume continues step-exactly.
+    stop_requested = threading.Event()
+    prev_handler = None
+    try:
+        prev_handler = signal.signal(signal.SIGTERM, lambda *_: stop_requested.set())
+    except ValueError:
+        pass  # not the main thread
+    try:
+        return _train(cfg, dev, model, stop_requested)
+    finally:
+        if prev_handler is not None:
+            try:
+                signal.signal(signal.SIGTERM, prev_handler)
+            except ValueError:
+                pass
+
+
+def _train(cfg: PretrainConfig, dev: torch.device, model: Optional[PixPro],
+           stop_requested: threading.Event) -> TrainState:
+    out_dir = cfg.runtime.output_dir
+    logger = setup_logger(out_dir, 0)
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        f.write(cfg.to_json())
+    logger.info("config:\n%s", cfg.to_json())
+    batch_size = cfg.data.batch_size  # one device: the global batch
+    logger.info("device: %s, global batch %d", dev, batch_size)
+
+    loader = build_pretrain_loader(cfg, global_batch_size=batch_size)
+    metrics_writer = profiler = None
+    try:
+        restart_transcode = cfg.data.restart_transcode and cfg.data.native_decode
+        if cfg.data.restart_transcode and not restart_transcode:
+            logger.warning("--restart-transcode requires --native-decode; "
+                           "ignoring it (no in-memory transcode, no byte cache)")
+        if cfg.data.cache_mode != "no" and (cfg.data.zip_mode or restart_transcode):
+            loader.dataset.init_cache(cfg.data.cache_mode, 0, 1)
+        # forked decode workers start before this process first touches CUDA
+        loader.start_workers()
+        steps_per_epoch = len(loader)
+        logger.info("dataset: %d instances, %d steps/epoch",
+                    len(loader.dataset), steps_per_epoch)
+
+        if dev.type == "cuda":
+            torch.backends.cudnn.benchmark = True  # fixed shapes: search once
+        if model is not None:
+            model = model.to(dev, memory_format=torch.channels_last)
+        trainer = build_trainer(cfg, dev, steps_per_epoch, model=model)
+        state = trainer.state
+        if cfg.runtime.pretrained_model:
+            _warm_start(state.model, cfg.runtime.pretrained_model, logger)
+
+        start_epoch = cfg.optim.start_epoch
+        resume_skip, resume_skip_epoch = 0, -1
+        resume_path = cfg.runtime.resume
+        if cfg.runtime.auto_resume and not resume_path:
+            resume_path = latest_checkpoint(out_dir) or ""
+        ckpt_extra = {}
+        if resume_path:
+            state, ckpt_epoch, ckpt_extra = load_checkpoint(resume_path, state)
+            start_epoch = ckpt_epoch + 1
+            logger.info("resumed from %s (epoch %d, step %d)",
+                        resume_path, ckpt_epoch, state.step)
+        if ckpt_extra.get("resume_idx"):
+            # step-exact preemption resume: re-enter the interrupted epoch and
+            # fast-forward its deterministic stream past the completed batches
+            start_epoch = int(ckpt_extra["resume_epoch"])
+            resume_skip = int(ckpt_extra["resume_idx"])
+            resume_skip_epoch = start_epoch
+            logger.info("step-exact resume: epoch %d from batch %d",
+                        start_epoch, resume_skip)
+
+        def save(epoch_, extra_=None):
+            return save_checkpoint(out_dir, epoch_, state, cfg.to_json(), extra=extra_)
+
+        max_epoch = cfg.optim.epochs
+        if cfg.runtime.debug_epochs:
+            max_epoch = min(max_epoch, start_epoch + cfg.runtime.debug_epochs - 1)
+        metrics_writer = MetricsWriter(out_dir, use_tensorboard=cfg.runtime.tensorboard)
+        launches0 = {k.__name__: k.launches for k in KERNELS}
+        loss_meter, time_meter = AverageMeter(), AverageMeter()
+        global_step = state.step
+        for epoch in range(start_epoch, max_epoch + 1):
+            t_end = time.time()
+            skip = resume_skip if epoch == resume_skip_epoch else 0
+            preempt_idx = None
+            preempted = False
+            for idx, batch in enumerate(loader.epoch(epoch, skip_batches=skip), start=skip):
+                if stop_requested.is_set():
+                    preempted = True
+                    preempt_idx = idx  # this batch has NOT been stepped
+                    break
+                n_eff = batch.pop("n_frames_eff", None)
+                batch.pop("index", None)
+                batch.pop("target", None)
+                if cfg.runtime.verbose and cfg.flow.use_flow:
+                    _verbose_dump(batch, cfg.data.n_frames)
+                device_batch = to_device(batch, dev)
+
+                # optional profiler window over steps 10..15
+                if cfg.runtime.profile_dir and global_step == 10 and profiler is None:
+                    activities = [torch.profiler.ProfilerActivity.CPU]
+                    if dev.type == "cuda":
+                        activities.append(torch.profiler.ProfilerActivity.CUDA)
+                    profiler = torch.profiler.profile(activities=activities)
+                    profiler.start()
+                logged_step = (idx % cfg.runtime.print_freq == 0
+                               or idx == steps_per_epoch - 1)
+                fn = trainer.step_fn if logged_step else trainer.step_fn_fast
+                state, metrics = fn(state, device_batch)
+                global_step += 1
+                if profiler is not None and global_step >= 15:
+                    profiler.stop()
+                    os.makedirs(cfg.runtime.profile_dir, exist_ok=True)
+                    trace = os.path.join(cfg.runtime.profile_dir, "trace.json")
+                    profiler.export_chrome_trace(trace)
+                    profiler = None
+                    logger.info("profiler trace written to %s", trace)
+
+                if logged_step:
+                    metrics = {k: float(v) for k, v in metrics.items()}
+                    loss_meter.update(metrics["loss"], batch_size)
+                    time_meter.update(time.time() - t_end)
+                    extra = ""
+                    if "mask_ratio_fwd" in metrics:
+                        extra = (f" mask_r {metrics['mask_ratio_fwd']:.3f}/"
+                                 f"{metrics['mask_ratio_bwd']:.3f}")
+                    if n_eff is not None:
+                        mean_f, no_flow_r, _ = frame_stats(n_eff, cfg.data.n_frames)
+                        extra += f" frames {mean_f:.2f} (no-flow {no_flow_r:.1%})"
+                    mem_mb = _peak_memory_mb(dev)
+                    if mem_mb is not None:
+                        extra += f" mem {mem_mb:.0f}MB"
+                    logger.info(
+                        "Train: [%d/%d][%d/%d] time %.3f lr %.4f "
+                        "loss %.4f (%.4f) [+4: %.4f] pos_num %.4g pos_mean %.3f%s",
+                        epoch, cfg.optim.epochs, idx, steps_per_epoch,
+                        time_meter.val, metrics["lr"], metrics["loss"],
+                        loss_meter.avg, metrics["loss"] + 4.0,
+                        metrics["pos_num"], metrics["pos_mean"], extra)
+                    scalars = dict(metrics)
+                    scalars["loss_plus4"] = metrics["loss"] + 4.0
+                    scalars["epoch"] = epoch
+                    # seconds since the previous step ended, loader wait and
+                    # the unlogged steps' device work included (the log
+                    # line's `time`)
+                    scalars["time"] = time_meter.val
+                    if mem_mb is not None:
+                        scalars["peak_memory_mb"] = mem_mb
+                    if n_eff is not None:
+                        scalars["mean_n_frames"] = mean_f
+                        scalars["no_optical_flow_ratio"] = no_flow_r
+                    metrics_writer.write(global_step, scalars)
+                t_end = time.time()
+
+            preempted = preempted or stop_requested.is_set()
+            if preempted:
+                # step-exact preemption: record (epoch, next batch) so resume
+                # fast-forwards the deterministic loader stream — no redone
+                # steps, no skipped data, step counter exact
+                extra = ({"resume_epoch": epoch, "resume_idx": preempt_idx}
+                         if preempt_idx is not None else None)
+                # TERM after the epoch's last batch: the epoch IS complete
+                done = epoch if preempt_idx is None else epoch - 1
+                path = save(max(done, start_epoch - 1), extra)
+                logger.info("SIGTERM: saved preemption checkpoint %s at step %d "
+                            "(resume %s); exiting cleanly", path, state.step,
+                            f"epoch {epoch} batch {preempt_idx}"
+                            if preempt_idx is not None else f"epoch {epoch}")
+                break
+
+            if epoch % cfg.runtime.save_freq == 0 or epoch == max_epoch:
+                logger.info("saved checkpoint %s", save(epoch))
+
+        launches = {k.__name__: k.launches - launches0[k.__name__] for k in KERNELS}
+        logger.info("kernel launches: %s", json.dumps(launches))
+        return state
+    finally:
+        if profiler is not None:
+            profiler.stop()
+        if metrics_writer is not None:
+            metrics_writer.close()
+        loader.close()
