@@ -5,19 +5,27 @@
 
 Builds the port's CUDA kernels from `pixflow_tpu_torch/csrc`, holds each
 against its plain PyTorch version at the recipe's shapes (K1 pair sums and
-their backward, with dq alone and with dq and dk, K2 point sampling, and the
-fused lazy flow_up evaluation, which also times the path it replaced: the
-composition through 15 K2 launches), checks one float32 train step through
-the kernels against the same step through the plain versions, then trains the `pretrain_bdd100k_2000ep_nframe6` recipe at
-full width (ResNet-50, 224 px, per-card batch 64, K=5 flows of 90 x 160,
-bf16 autocast over f32 weights) for 2 warm-up and 10 timed steps on
-synthetic data made from a seed, and checks which kernels that run launched.
-Last, the `cli` phase trains the same recipe from files: it writes a
-synthetic BDD100k-shaped corpus (720 x 1280 JPEG frames, six a video, and
-.pth flows), times the port's loader alone, then runs
+their backward, with dq alone and with dq and dk, K2 point sampling and its
+grid-sample entry at the materialising composition's two read shapes, and
+the fused lazy flow_up evaluation, which also times the path it replaced:
+the composition through 15 K2 launches), checks one float32 train step
+through the kernels against the same step through the plain versions, then
+trains the `pretrain_bdd100k_2000ep_nframe6` recipe at full width
+(ResNet-50, 224 px, per-card batch 64, K=5 flows of 90 x 160, bf16 autocast
+over f32 weights) for 2 warm-up and 10 timed steps on synthetic data made
+from a seed, and checks which kernels that run launched. The same recipe
+then runs on its other paths: `materialize` (--no-flow_up_lazy: whole
+720 x 1280 fields through K2, held against the lazy step in float32),
+`multispan_parity_f32` and `multispan` (--use_flow_frames: all 15
+(span, start) windows, batch 32). Last, the `cli` phase trains the recipe
+from files: it writes a synthetic BDD100k-shaped corpus (720 x 1280 JPEG
+frames, six a video, and .pth flows), times the port's loader alone (also
+with the photometric ops left to the card), then runs
 `python -m pixflow_tpu_torch.main_pretrain` for two epochs and again with
-`--auto-resume` for a third, and checks the logged metrics, the
-checkpoints, the kernel launches and the step-exact resume.
+`--auto-resume` for a third, and one epoch multi-span with `--device-aug`
+and `--mask-ratio-exact`, and checks the logged metrics, the checkpoints,
+the kernel launches and the step-exact resume. Each path's launches are
+counted from 0 just before it runs and read just after.
 Each phase prints one JSON line; then come the `kernels` line, the card's
 `nvidia-smi` name and power limit, and last `{"ok": true, "device": ...}`.
 Any failed check raises: no `ok` line and a non-zero exit. Without a CUDA
@@ -275,8 +283,74 @@ def compare_point_sample(dev, batch):
             entry["library_ms"] = cuda_ms(lib)
         entry["launches"] = point_sample.launches - before
         results[f"up{up}"] = entry
+    results["grid_sample"] = compare_grid_sample(dev, batch)
     emit({"phase": "kernel_point_sample", "field": [b, h, w, c], "points": [b, n],
           **results})
+    return results
+
+
+def compare_grid_sample(dev, batch):
+    """K2's grid-sample entry at the materialising composition's two read
+    shapes, on the recipe's flows: a 1/8-res field [64, 90, 160, 2] read at
+    its 14400 pixels advected by one flow (composition without --flow_up),
+    and a full-res field [64, 720, 1280, 2] read at its 921600 pixels
+    (--flow_up). Held against the plain gather (`resample.grid_sample`),
+    whose op order it repeats, and timed beside `F.grid_sample`."""
+    import torch.nn.functional as F
+    from pixflow_tpu_torch.ops import resample
+    from pixflow_tpu_torch.ops.kernels import grid_sample
+
+    flows = batch["flows_fwd"]  # [B, 5, 90, 160, 2]
+    shapes = {"flow_1_8": (flows[:, 1].contiguous(), flows[:, 0]),
+              "flow_up": (resample.upflow8(flows[:, 1]).contiguous(),
+                          resample.upflow8(flows[:, 0]))}
+    results = {}
+    for name, (field, first) in shapes.items():
+        b, h, w, c = field.shape
+        base = resample.coords_grid(h, w, device=dev)[None]
+        grid = resample.normalize_coords(base + first, h, w).contiguous()
+        before = grid_sample.launches
+        got = grid_sample(field, grid)
+        want = resample.grid_sample(field, grid)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        differ = int((got != want).sum())
+        check(differ == 0, f"grid_sample {name}: {differ} elements differ from the gather")
+
+        # taps with a nonzero weight inside the field: what the read needs
+        x = ((grid[..., 0] + 1.0) * 0.5 * (w - 1))
+        y = ((grid[..., 1] + 1.0) * 0.5 * (h - 1))
+        taps = 0.0
+        for xc, wx in ((torch.floor(x), 1.0 - (x - torch.floor(x))),
+                       (torch.floor(x) + 1.0, x - torch.floor(x))):
+            for yc, wy in ((torch.floor(y), 1.0 - (y - torch.floor(y))),
+                           (torch.floor(y) + 1.0, y - torch.floor(y))):
+                inside = (xc >= 0) & (xc <= w - 1) & (yc >= 0) & (yc <= h - 1)
+                taps += float((inside & (wx * wy != 0)).sum())
+        n = grid.shape[1] * grid.shape[2]
+        bytes_ = min(taps * c * 4, field.numel() * 4) + grid.numel() * 4 + got.numel() * 4
+        ops_s = taps * c * 2 / F32_OPS_PER_S
+        nchw = field.permute(0, 3, 1, 2).contiguous()
+        lib = lambda: F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros",
+                                    align_corners=True)
+        lib_err = float((lib().permute(0, 2, 3, 1) - want).abs().max())
+        check(lib_err <= 1e-3, f"F.grid_sample disagrees with the gather: {lib_err}")
+        entry = dict(field=[b, h, w, c], points=[b, n], max_abs_err=err,
+                     elements_differ=differ, taps=taps,
+                     kernel_ms=cuda_ms(lambda: grid_sample(field, grid), iters=20),
+                     host_ms=host_ms(lambda: grid_sample(field, grid), iters=20),
+                     plain_ms=cuda_ms(lambda: resample.grid_sample(field, grid), iters=3),
+                     bound_ms=max(bytes_ / HBM_BYTES_PER_S, ops_s) * 1e3,
+                     bound_by="bytes" if bytes_ / HBM_BYTES_PER_S >= ops_s else "operations",
+                     library_ms=cuda_ms(lib, iters=20), library_max_abs_err=lib_err,
+                     launches=grid_sample.launches - before)
+        if name == "flow_1_8":
+            # the JAX package's dispatch for this shape, the tent
+            # contractions: the plain form a CPU run follows
+            tent = resample.grid_sample_auto(field, grid)
+            entry["tent_max_abs_err"] = float((tent - want).abs().max())
+            entry["tent_elements_differ"] = int((tent != want).sum())
+        results[name] = entry
     return results
 
 
@@ -468,7 +542,7 @@ def recipe_run(dev):
     # one flow_up_points launch per direction, one more per direction for the
     # telemetry of a logged step; K2 itself is off the path
     expect = {"pair_sums": 2 * 12, "pair_sums_backward": 2 * 12, "point_sample": 0,
-              "flow_up_points": 2 * 12 + 2 * n_tele}
+              "flow_up_points": 2 * 12 + 2 * n_tele, "grid_sample": 0}
     check(launches == expect, f"kernel launches {launches}, expected {expect}")
     total = sum(times)
     emit({"phase": "recipe", "recipe": RECIPE, "arch": cfg.model.arch,
@@ -483,7 +557,244 @@ def recipe_run(dev):
     return launches, 1e3 * float(np.median(times))
 
 
-# --- phase 5: the CLI, training from files -----------------------------------
+# --- phase 5: the materialising flow path ------------------------------------
+
+def _recipe_cfg(**flow):
+    from pixflow_tpu_torch.configs import get_recipe
+    cfg = get_recipe(RECIPE)
+    for k, v in flow.items():
+        setattr(cfg.flow, k, v)
+    return cfg
+
+
+def _timed_steps(cfg, dev, batches, warm, timed, trainer):
+    """(trainer, step seconds, launches of every kernel over the timed and
+    warm-up steps, peak bytes): counts set to 0 just before, read just
+    after."""
+    from pixflow_tpu_torch.ops.kernels import KERNELS
+    from pixflow_tpu_torch.train import run_steps
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    for kern in KERNELS:
+        kern.launches = 0
+    trainer = run_steps(cfg, batches, warm, dev, trainer=trainer)
+    times = []
+    for _ in range(timed):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer = run_steps(cfg, batches, 1, dev, trainer=trainer)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+    launches = {kern.__name__: kern.launches for kern in KERNELS}
+    return trainer, times, launches, torch.cuda.max_memory_allocated(dev)
+
+
+def materialize_run(dev):
+    """The recipe at batch 64 with --no-flow_up_lazy: K=5 flows upsampled to
+    720 x 1280 and composed as whole fields, full-res cycle masks, all reads
+    through K2's grid-sample entry. One f32 step against the lazy step on
+    the same batch and weights, at the JAX package's lazy-vs-materialising
+    bounds (tests/test_flow_points.py: positions rtol 1e-4, atol 2e-3 px,
+    masks agree on 99.5%, loss rtol 1e-4); then timed bf16 steps and the
+    exact mask ratio against the strided estimate."""
+    from pixflow_tpu_torch.models import init_momentum_from_online
+    from pixflow_tpu_torch.ops.flow import compose_and_mask
+    from pixflow_tpu_torch.ops.flow_points import LazyFlowUp, flow_up_warp_points
+    from pixflow_tpu_torch.ops.flow_points import mask_ratio_estimate
+    from pixflow_tpu_torch.ops.loss import bin_centers, warp_points_with_flow
+    from pixflow_tpu_torch.train import (build_model, build_trainer, run_steps,
+                                         synthetic_batch, to_device)
+    from pixflow_tpu_torch.train.driver import _exact_mask_ratio_fn
+    from pixflow_tpu_torch.train.train_step import MASK_RATIO_STRIDE
+
+    cfg = _recipe_cfg(flow_up_lazy=False)
+    flow = cfg.flow
+    batch = to_device(synthetic_batch(cfg, seed=20), dev)
+    b = cfg.data.batch_size
+
+    # the geometry: materialised field + mask read at the bin centers
+    # against the lazy evaluation at the same points
+    with torch.no_grad():
+        ff, _, mf, _ = compose_and_mask(batch["flows_fwd"], batch["flows_bwd"], flow_up=True,
+                                        alpha_1=flow.alpha1, alpha_2=flow.alpha2)
+        x, y = bin_centers(batch["coord1"], (7, 7))
+        orig = (batch["coord1"][:, 9], batch["coord1"][:, 8])
+        rx, ry, rm = warp_points_with_flow(ff, x, y, orig, mf)
+        lf = LazyFlowUp(batch["flows_fwd"].transpose(0, 1).contiguous(),
+                        batch["flows_bwd"].transpose(0, 1).contiguous(),
+                        flow.alpha1, flow.alpha2)
+        lx, ly, lm = flow_up_warp_points(lf, x, y, orig)
+        del ff, mf
+    pos_err = torch.maximum((lx - rx).abs() - 1e-4 * rx.abs(),
+                            (ly - ry).abs() - 1e-4 * ry.abs())
+    geometry = {"max_abs_err_px": float(torch.maximum((lx - rx).abs(), (ly - ry).abs()).max()),
+                "points_beyond_tolerance": int((pos_err > 2e-3).sum()),
+                "mask_agreement": float((lm == rm).float().mean())}
+    check(geometry["points_beyond_tolerance"] == 0, f"materialised vs lazy points: {geometry}")
+    check(geometry["mask_agreement"] >= 0.995, f"materialised vs lazy masks: {geometry}")
+
+    # one f32 step, materialising against lazy, same batch and weights
+    torch.backends.cudnn.deterministic = True
+    f32 = copy.deepcopy(cfg)
+    f32.runtime.compute_dtype = "float32"
+    model = build_model(f32, dev)
+    init_momentum_from_online(model)
+    before = {k: v.detach().clone() for k, v in model.named_parameters()}
+    runs = {}
+    for lazy in (False, True):
+        c = copy.deepcopy(f32)
+        c.flow.flow_up_lazy = lazy
+        tr = build_trainer(c, dev, STEPS_PER_EPOCH, model=copy.deepcopy(model))
+        tr = run_steps(c, [batch], 1, dev, trainer=tr)
+        runs[lazy] = (tr.history[0], tr.state.model.state_dict())
+        del tr
+    del model
+    torch.backends.cudnn.deterministic = False
+    (mm, sm), (ml, sl) = runs[False], runs[True]
+    loss_diff = abs(mm["loss"] - ml["loss"])
+    pos_diff = {k: abs(mm[k] - ml[k]) / max(ml[k], 1.0) for k in ("pos_num_1", "pos_num_2")}
+    upd_err = max(rel(sm[n] - before[n], sl[n] - before[n]) for n in before
+                  if not n.split(".")[0].endswith("_k"))
+    parity = {"loss_materialize": mm["loss"], "loss_lazy": ml["loss"], "loss_abs_diff": loss_diff,
+              "pos_num_materialize": [mm["pos_num_1"], mm["pos_num_2"]],
+              "pos_num_lazy": [ml["pos_num_1"], ml["pos_num_2"]],
+              "pos_num_equal": mm["pos_num"] == ml["pos_num"], "pos_num_rel_diff": pos_diff,
+              "param_update_max_rel_err": upd_err,
+              "mask_ratio_materialize": [mm["mask_ratio_fwd"], mm["mask_ratio_bwd"]],
+              "mask_ratio_lazy_strided": [ml["mask_ratio_fwd"], ml["mask_ratio_bwd"]]}
+    del runs, sm, sl, before
+    check(loss_diff <= 1e-4 * abs(ml["loss"]) + 1e-5, f"materialised vs lazy loss: {parity}")
+    check(all(d <= 5e-3 for d in pos_diff.values()), f"materialised vs lazy pos_num: {parity}")
+
+    # timed bf16 steps
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.benchmark = True
+    trainer = build_trainer(cfg, dev, STEPS_PER_EPOCH)
+    steps = 2 + 5
+    trainer, times, launches, peak = _timed_steps(cfg, dev, [batch], 2, 5, trainer)
+    for m in trainer.history:
+        check(math.isfinite(m["loss"]) and m["pos_num"] > 0, f"materialize step {m}")
+    # K = 5 reads a direction, one read per cycle mask: 12 a step
+    expect = {"pair_sums": 2 * steps, "pair_sums_backward": 2 * steps, "point_sample": 0,
+              "flow_up_points": 0, "grid_sample": 12 * steps}
+    check(launches == expect, f"materialize launches {launches}, expected {expect}")
+    exact = _exact_mask_ratio_fn(cfg)(batch["flows_fwd"], batch["flows_bwd"])
+    fwd = batch["flows_fwd"].transpose(0, 1).contiguous()
+    bwd = batch["flows_bwd"].transpose(0, 1).contiguous()
+    strided = [float(torch.mean(mask_ratio_estimate(a, c, flow.alpha1, flow.alpha2,
+                                                    stride=MASK_RATIO_STRIDE)))
+               for a, c in ((fwd, bwd), (bwd, fwd))]
+    del trainer
+    torch.cuda.empty_cache()
+    total = sum(times)
+    emit({"phase": "materialize", "recipe": RECIPE, "batch": b, "flow_up_lazy": False,
+          "geometry_vs_lazy": geometry, "step_f32_vs_lazy": parity,
+          "timed_steps": len(times), "step_ms": 1e3 * total / len(times),
+          "step_ms_median": 1e3 * float(np.median(times)), "img_per_s": b * len(times) / total,
+          "peak_mem_gb": peak / 1e9, "launches": launches,
+          "grid_sample_launches_per_step": launches["grid_sample"] / steps,
+          "mask_ratio_exact": list(exact), "mask_ratio_strided_estimate": strided,
+          "card": nvidia_smi()})
+    return launches
+
+
+# --- phase 6: multi-span -------------------------------------------------------
+
+MULTISPAN_BATCH = 32  # a sample is 2F = 10 encoder crops: the recipe's 64 halved
+
+
+def multispan_parity(dev):
+    """One multi-span step at full width (ResNet-50, 224 px, K=5: 15
+    windows), batch 4, f32, TF32 off: through the kernels against through
+    their plain versions."""
+    from pixflow_tpu_torch.models import init_momentum_from_online
+    from pixflow_tpu_torch.ops.kernels import KERNELS
+    from pixflow_tpu_torch.train import build_model, build_trainer, run_steps, synthetic_batch
+
+    torch.backends.cudnn.deterministic = True
+    cfg = _recipe_cfg(use_flow_frames=True)
+    cfg.data.batch_size = 4
+    cfg.runtime.compute_dtype = "float32"
+    batch = synthetic_batch(cfg, seed=30)
+    model = build_model(cfg, dev)
+    init_momentum_from_online(model)
+    before = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    runs, counts = {}, {}
+    for plain in (False, True):
+        tr = build_trainer(cfg, dev, STEPS_PER_EPOCH, model=copy.deepcopy(model),
+                           plain_kernels=plain)
+        for kern in KERNELS:
+            kern.launches = 0
+        tr = run_steps(cfg, [batch], 1, dev, trainer=tr)
+        counts["plain" if plain else "kernel"] = {k.__name__: k.launches for k in KERNELS}
+        runs[plain] = (tr.history[0], tr.state.model.state_dict())
+    torch.backends.cudnn.deterministic = False
+    (mk, sk), (mp, sp) = runs[False], runs[True]
+    loss_rel = abs(mk["loss"] - mp["loss"]) / abs(mp["loss"])
+    pos_diff = {k: abs(mk[k] - mp[k]) / max(mp[k], 1.0) for k in ("pos_num_1", "pos_num_2")}
+    stats_err = max(rel(sk[n], sp[n]) for n, _ in model.named_buffers())
+    upd_err = max(rel(sk[n] - before[n], sp[n] - before[n]) for n, _ in model.named_parameters()
+                  if not n.split(".")[0].endswith("_k"))
+    emit({"phase": "multispan_parity_f32", "batch": 4, "windows": 15, "tf32": False,
+          "loss_kernel": mk["loss"], "loss_plain": mp["loss"], "loss_rel_diff": loss_rel,
+          "pos_num_kernel": [mk["pos_num_1"], mk["pos_num_2"]],
+          "pos_num_plain": [mp["pos_num_1"], mp["pos_num_2"]], "pos_num_rel_diff": pos_diff,
+          "bn_stats_max_rel_err": stats_err, "param_update_max_rel_err": upd_err,
+          "launches": counts})
+    # 15 windows, one launch of each K1 kernel and of flow_up_points a
+    # window and direction, 2 more flow_up_points for the logged step
+    check(counts == {"kernel": {"pair_sums": 30, "pair_sums_backward": 30, "point_sample": 0,
+                                "flow_up_points": 32, "grid_sample": 0},
+                     "plain": dict.fromkeys(counts["plain"], 0)},
+          f"multispan parity launches {counts}")
+    check(math.isfinite(mk["loss"]) and loss_rel <= 1e-4, f"multispan loss differs by {loss_rel}")
+    check(all(d <= 5e-3 for d in pos_diff.values()), f"multispan pos_num differs: {pos_diff}")
+    check(mk["pos_num_1"] > 0 and mk["pos_num_2"] > 0, "multispan: no positive pairs")
+    check(stats_err <= 1e-6, f"multispan BN statistics differ: {stats_err}")
+    check(upd_err <= 1e-3, f"multispan parameter updates differ: {upd_err}")
+
+
+def multispan_run(dev):
+    """The full-width multi-span recipe (K=5: 15 windows, F=5 crops a view)
+    at batch MULTISPAN_BATCH: 2 warm-up and 10 timed steps, one of them
+    logged (telemetry on the full-span window)."""
+    from pixflow_tpu_torch.train import build_trainer, synthetic_batch, to_device
+
+    torch.backends.cudnn.benchmark = True
+    cfg = _recipe_cfg(use_flow_frames=True)
+    cfg.data.batch_size = b = MULTISPAN_BATCH
+    cfg.runtime.print_freq = 10  # steps 0 and 10 logged
+    batches = [to_device(synthetic_batch(cfg, seed=s), dev) for s in (40, 41)]
+    trainer = build_trainer(cfg, dev, STEPS_PER_EPOCH)
+    t0 = time.perf_counter()
+    trainer, times, launches, peak = _timed_steps(cfg, dev, batches, 2, 10, trainer)
+    wall = time.perf_counter() - t0
+    logged = trainer.history
+    for m in logged:
+        check(math.isfinite(m["loss"]) and m["pos_num"] > 0, f"multispan step {m}")
+        check(0.0 <= m["mask_ratio_fwd"] <= 0.5, f"multispan mask ratio {m['mask_ratio_fwd']}")
+    check(all(bool(torch.isfinite(p).all()) for p in trainer.state.model.parameters()),
+          "multispan: non-finite parameters")
+    n = 12
+    expect = {"pair_sums": 30 * n, "pair_sums_backward": 30 * n, "point_sample": 0,
+              "flow_up_points": 30 * n + 2 * len(logged), "grid_sample": 0}
+    check(launches == expect, f"multispan launches {launches}, expected {expect}")
+    del trainer, batches
+    torch.cuda.empty_cache()
+    total = sum(times)
+    emit({"phase": "multispan", "recipe": RECIPE, "use_flow_frames": True, "batch": b,
+          "crops_per_sample": 2 * (cfg.data.n_frames - 1), "windows": 15,
+          "timed_steps": len(times), "warm_and_timed_s": wall,
+          "step_ms": 1e3 * total / len(times), "step_ms_median": 1e3 * float(np.median(times)),
+          "step_ms_max": 1e3 * max(times), "samples_per_s": b * len(times) / total,
+          "peak_mem_gb": peak / 1e9, "launches": launches,
+          "launches_per_step": {k: v / n for k, v in launches.items()},
+          "logged": logged, "card": nvidia_smi()})
+    return launches
+
+
+# --- phase 7: the CLI, training from files -----------------------------------
 
 def run_cli(args, timeout):
     """`python -m pixflow_tpu_torch.main_pretrain ARGS` in its own process
@@ -568,11 +879,14 @@ def cli_run(recipe_step_ms, extra_args=()):
         corpus_s = time.perf_counter() - t0
         data_dir = os.path.join(tmp, "bdd", "images")
 
-        # the loader alone at the recipe's settings, on the host
+        # the loader alone at the recipe's settings, on the host; then with
+        # the photometric ops left to the card (--device-aug: the host only
+        # samples their parameters)
         cfg.data.data_dir, cfg.data.num_workers = data_dir, workers
         loader_rate = {}
-        for mode in ("process", "thread"):
-            cfg.data.worker_mode = mode
+        for mode in ("process", "thread", "process_device_photometric"):
+            cfg.data.worker_mode = mode.split("_")[0]
+            cfg.data.device_aug = mode.endswith("photometric")
             loader = build_pretrain_loader(cfg, global_batch_size=b)
             loader.start_workers()
             try:
@@ -581,9 +895,10 @@ def cli_run(recipe_step_ms, extra_args=()):
                 loader_rate[mode] = n / (time.perf_counter() - t)
             finally:
                 loader.close()
+        cfg.data.device_aug = False
         steps = len(loader)
         check(steps >= 2, f"{steps} steps an epoch")
-        costs = sample_costs(loader.dataset)
+        costs = sample_costs(build_pretrain_loader(cfg, global_batch_size=b).dataset)
 
         out_dir = os.path.join(tmp, "out")
         args = ["--recipe", RECIPE, "--data-dir", data_dir, "--output-dir", out_dir,
@@ -605,7 +920,7 @@ def cli_run(recipe_step_ms, extra_args=()):
         # every step logged (print_freq 1): two flow_up_points launches a
         # step, two more for the telemetry of a logged step
         expect = [{"pair_sums": 2 * n, "pair_sums_backward": 2 * n, "point_sample": 0,
-                   "flow_up_points": 4 * n} for n in (2 * steps, steps)]
+                   "flow_up_points": 4 * n, "grid_sample": 0} for n in (2 * steps, steps)]
         check([r["step"] for r in recs] == list(range(1, 3 * steps + 1)),
               f"logged steps {[r['step'] for r in recs]}, expected 1..{3 * steps}")
         for r in recs:
@@ -624,6 +939,7 @@ def cli_run(recipe_step_ms, extra_args=()):
 
         epoch2 = [r["time"] for r in recs if r["epoch"] == 2]
         step_ms = 1e3 * float(np.median(epoch2))
+        multispan = cli_multispan(data_dir, os.path.join(tmp, "out_multispan"), workers)
         emit({"phase": "cli", "recipe": RECIPE, "videos": CLI_VIDEOS, "frame_hw": CLI_FRAME_HW,
               "corpus_bytes": corpus_bytes, "corpus_write_s": corpus_s,
               "cpu_count": os.cpu_count(), "affinity": cores, "workers": workers,
@@ -635,7 +951,46 @@ def cli_run(recipe_step_ms, extra_args=()):
               "recipe_step_ms_median_synthetic": recipe_step_ms,
               "peak_mem_mb": max(r.get("peak_memory_mb", 0.0) for r in recs),
               "launches": counts, "first_resumed": first_resumed,
-              "losses": [r["loss"] for r in recs], "card": nvidia_smi()})
+              "losses": [r["loss"] for r in recs], "multispan": multispan,
+              "card": nvidia_smi()})
+
+
+def cli_multispan(data_dir, out_dir, workers):
+    """One epoch of the multi-span recipe through the CLI, with the
+    photometric ops on the card and the exact mask ratio of every (logged)
+    batch: `metrics.jsonl` holds the frame statistics and both ratios."""
+    b = MULTISPAN_BATCH
+    args = ["--recipe", RECIPE, "--data-dir", data_dir, "--output-dir", out_dir,
+            "--print-freq", "1", "--num-workers", str(workers), "--worker-mode", "process",
+            "--use_flow_frames", "--device-aug", "--mask-ratio-exact",
+            "--batch-size", str(b), "--debug-epochs", "1"]
+    t = time.perf_counter()
+    run_cli(args, timeout=420)
+    run_s = time.perf_counter() - t
+    recs, counts = read_cli_run(out_dir)
+    n = CLI_VIDEOS // b
+    check([r["step"] for r in recs] == list(range(1, n + 1)),
+          f"multi-span CLI logged steps {[r['step'] for r in recs]}, expected 1..{n}")
+    for r in recs:
+        check(math.isfinite(r["loss"]) and r["pos_num"] > 0, f"multi-span CLI step {r}")
+        check(r["mean_n_frames"] == 6.0 and r["no_optical_flow_ratio"] == 0.0,
+              f"multi-span CLI frame statistics {r}")
+        for key in ("mask_ratio_fwd", "mask_ratio_bwd", "mask_ratio_exact_fwd",
+                    "mask_ratio_exact_bwd"):
+            check(0.0 <= r[key] <= 0.5, f"multi-span CLI {key} {r[key]} at step {r['step']}")
+    # 15 windows a step; every step logged: the telemetry's 2 flow_up_points
+    # and the exact ratio's materialising composition (60 reads) and masks (30)
+    expect = [{"pair_sums": 30 * n, "pair_sums_backward": 30 * n, "point_sample": 0,
+               "flow_up_points": 32 * n, "grid_sample": 90 * n}]
+    check(counts == expect, f"multi-span CLI launches {counts}, expected {expect}")
+    times = [r["time"] for r in recs[1:]]
+    return {"batch": b, "steps": n, "run_s": run_s, "step_ms_median_after_first":
+            1e3 * float(np.median(times)), "samples_per_s": b / float(np.median(times)),
+            "peak_mem_mb": max(r.get("peak_memory_mb", 0.0) for r in recs),
+            "mask_ratio": [[r["mask_ratio_fwd"], r["mask_ratio_bwd"]] for r in recs],
+            "mask_ratio_exact": [[r["mask_ratio_exact_fwd"], r["mask_ratio_exact_bwd"]]
+                                 for r in recs],
+            "launches": counts, "losses": [r["loss"] for r in recs]}
 
 
 def main():
@@ -664,6 +1019,11 @@ def main():
     fused = compare_flow_up_points(dev, batch)
     step_parity(dev)
     launches, recipe_step_ms = recipe_run(dev)
+    del batch
+    torch.cuda.empty_cache()
+    mat_launches = materialize_run(dev)
+    multispan_parity(dev)
+    multispan_run(dev)
     torch.cuda.empty_cache()  # the CLI's process needs the card's memory
     cli_run(recipe_step_ms)
 
@@ -674,10 +1034,11 @@ def main():
                 "plain_ms": m["plain_ms"], "bound_ms": m["bound_ms"],
                 "bound_by": m["bound_by"], "library_ms": m["library_ms"]}
 
-    # each kernel as the main path runs it: K1 and its backward (dq alone:
-    # the key features are targets) on bf16 features, the fused flow_up
-    # evaluation on one direction's bin centers; K2 (off the path) at up=1,
-    # tent_warp_pallas's function
+    # each kernel as its path runs it, with that path's launches: K1 and its
+    # backward (dq alone: the key features are targets) on bf16 features,
+    # the fused flow_up evaluation on one direction's bin centers (the
+    # recipe); K2 (off that path) at up=1, tent_warp_pallas's function; K2's
+    # grid-sample entry at the full-res read of the materialising path
     kernels = [entry("pair_sums", "pair_sums", "pixflow_tpu/ops/pallas/pair_loss.py:36",
                      launches["pair_sums"], k1["bfloat16"]),
                entry("pair_sums_backward", "pair_sums_bwd",
@@ -686,7 +1047,9 @@ def main():
                entry("point_sample", "point_sample", "pixflow_tpu/ops/pallas/warp.py:50",
                      launches["point_sample"], k2["up1"]),
                entry("flow_up_points", "flow_up_points", "pixflow_tpu/ops/pallas/warp.py:50",
-                     launches["flow_up_points"], fused["warp"])]
+                     launches["flow_up_points"], fused["warp"]),
+               entry("grid_sample", "point_sample", "pixflow_tpu/ops/pallas/warp.py:50",
+                     mat_launches["grid_sample"], k2["grid_sample"]["flow_up"])]
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -4,16 +4,15 @@
 
 Every field is kept so the two stay interchangeable. The port reads
 `data.*` (the loader, `train/driver.py:train`), `flow.*` for file flows
-on the lazy flow_up path, `model.*`, `optim.*` and `runtime.*`, where
+(lazy or materialising flow_up, composition at the stored resolution,
+multi-span), `model.*`, `optim.*` and `runtime.*`, where
 `checkpoint_backend="msgpack"` names the single-file backend (written
 with `torch.save` here). Settings whose path is not ported raise
-NotImplementedError (`train/driver.py:check_ported`): `data.device_aug`,
+NotImplementedError (`train/driver.py:check_ported`):
 `data.loader_backend="grain"`, live RAFT (`flow.use_flow` without
-`use_flow_file`, and `flow_model/small/flow_bs/raft_*`), multi-span,
-`flow_up` without `flow_up_lazy` or composition without `flow_up`,
-`runtime.mask_ratio_exact`, `checkpoint_backend="orbax"`, `mesh_shape` > 1,
-`wandb` and `debug`; `runtime.preempt_vote_steps` has no use in one
-process."""
+`use_flow_file`, and `flow_model/small/flow_bs/raft_*`),
+`checkpoint_backend="orbax"`, `mesh_shape` > 1, `wandb` and `debug`;
+`runtime.preempt_vote_steps` has no use in one process."""
 
 from __future__ import annotations
 
@@ -57,9 +56,9 @@ class FlowConfig:
     flow_model: str = ""
     small: bool = False
     flow_up: bool = False              # 8x upsample before composing
-    flow_up_lazy: bool = True          # point-domain flow_up (the only one here)
+    flow_up_lazy: bool = True          # point-domain flow_up
     flow_cat_norm: bool = False        # compose in normalized units
-    use_flow_frames: bool = False      # multi-span (not ported yet)
+    use_flow_frames: bool = False      # multi-span
     alpha1: Optional[float] = None     # cycle-consistency coefficients
     alpha2: Optional[float] = None
     flow_bs: Optional[int] = None

@@ -24,6 +24,19 @@
 // 8-byte load per tap and one 8-byte store per point.
 //
 // Numerics: see point_sample.cuh; compiled with --fmad=false.
+//
+// The grid-sample entry (pixflow_grid_sample) serves the materialising flow
+// algebra (ops/flow.py: composition and cycle mask, the function the TPU
+// kernel was written for). It takes grid_sample's normalised grid and reads
+// in the gather's op order, not the separable one above: x = ((g + 1) * 0.5)
+// * (W - 1), the four bilinear weights (1-wy)(1-wx), (1-wy)wx, wy(1-wx),
+// wy*wx, and each channel summed as 0 + t00 + t01 + t10 + t11 with a zero
+// for a tap outside the field. Composition feeds each read's output into the
+// next read's position, so a last-bit difference from the plain gather
+// (ops/resample.py:grid_sample) could grow into another cycle-mask decision;
+// in this order the kernel gives the plain gather's bits. One thread per
+// point; bound by bytes: a point reads its 8-byte grid entry and four taps
+// and writes C floats.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -100,7 +113,88 @@ void launch(const float* field, const float* pts, float* out, int B, int H,
   }
 }
 
+// One tap of the gather: the weight times the field value where (xc, yc) lies
+// inside the field, else 0, exactly as the plain version's where().
+__device__ __forceinline__ bool tap_ok(float xc, float yc, int H, int W) {
+  return xc >= 0.0f && xc <= (float)(W - 1) && yc >= 0.0f &&
+         yc <= (float)(H - 1);
+}
+
+template <int C2>
+__global__ void grid_sample_kernel(const float* __restrict__ img,
+                                   const float2* __restrict__ grid,
+                                   float* __restrict__ out, int total, int H,
+                                   int W, int C, int N) {
+  const int idx = blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= total) return;
+  const int b = idx / N;
+  const float2 g = __ldg(grid + idx);
+  const float x = (g.x + 1.0f) * 0.5f * (float)(W - 1);
+  const float y = (g.y + 1.0f) * 0.5f * (float)(H - 1);
+  const float x0 = floorf(x), y0 = floorf(y);
+  const float x1 = x0 + 1.0f, y1 = y0 + 1.0f;
+  const float wx = x - x0, wy = y - y0;
+  const float tw[4] = {(1.0f - wy) * (1.0f - wx), (1.0f - wy) * wx,
+                       wy * (1.0f - wx), wy * wx};
+  const float tx[4] = {x0, x1, x0, x1};
+  const float ty[4] = {y0, y0, y1, y1};
+  int off[4];
+  bool ok[4];
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    ok[t] = tap_ok(tx[t], ty[t], H, W);
+    off[t] = ok[t] ? ((int)ty[t] * W + (int)tx[t]) : 0;
+  }
+  const float* fb = img + b * H * W * C;
+  if constexpr (C2) {
+    const float2* f2 = reinterpret_cast<const float2*>(fb);
+    float ax = 0.0f, ay = 0.0f;
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+      float px = 0.0f, py = 0.0f;
+      if (ok[t]) {
+        const float2 v = __ldg(f2 + off[t]);
+        px = tw[t] * v.x;
+        py = tw[t] * v.y;
+      }
+      ax = ax + px;
+      ay = ay + py;
+    }
+    reinterpret_cast<float2*>(out)[idx] = make_float2(ax, ay);
+  } else {
+    for (int c = 0; c < C; ++c) {
+      float acc = 0.0f;
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const float p = ok[t] ? tw[t] * __ldg(fb + off[t] * C + c) : 0.0f;
+        acc = acc + p;
+      }
+      out[idx * C + c] = acc;
+    }
+  }
+}
+
 }  // namespace
+
+// img [B, H, W, C] f32, grid [B, N, 2] normalised (x, y) f32, out [B, N, C]
+// f32, all contiguous on one device, every element count below 2^31 (the
+// wrapper checks). Returns cudaGetLastError() after the launch.
+extern "C" int pixflow_grid_sample(const float* img, const float* grid,
+                                   float* out, int B, int H, int W, int C,
+                                   int N, void* stream) {
+  const int total = B * N;
+  const int blocks = (total + kThreads - 1) / kThreads;
+  const uintptr_t addr = (uintptr_t)img | (uintptr_t)out;
+  const float2* g2 = reinterpret_cast<const float2*>(grid);
+  if (C == 2 && addr % 8 == 0) {
+    grid_sample_kernel<1><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        img, g2, out, total, H, W, C, N);
+  } else {
+    grid_sample_kernel<0><<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        img, g2, out, total, H, W, C, N);
+  }
+  return (int)cudaGetLastError();
+}
 
 // field [B, H, W, C] f32, pts [B, N, 2] (x, y) f32, out [B, N, C] f32, all
 // contiguous on one device, every element count below 2^31 (the wrapper

@@ -19,8 +19,8 @@ the device batch.
 The port's own copy of `pixflow_tpu/data/transforms.py`: the same ops in
 the same order with the same draws from the same `random.Random`, so the
 two packages' loaders produce identical crops. The device-side photometric
-parameters are sampled here as there; the port's train step does not apply
-them yet (`--device-aug` is not ported)."""
+parameters are sampled here as there and applied on the card by
+`ops/augment.py` (`--device-aug`)."""
 
 from __future__ import annotations
 

@@ -79,9 +79,10 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--wandb-entity", type=str, default="")
     p.add_argument("--mask-ratio-exact", action="store_true",
                    help="log the reference-exact full-field mask ratio "
-                        "(not ported)")
+                        "of each logged batch (materialising composition)")
     p.add_argument("--device-aug", action="store_true",
-                   help="photometric augmentation on the device (not ported)")
+                   help="photometric augmentation on the device "
+                        "(ops/augment.py); the loader only samples it")
     p.add_argument("--n-frames", type=int, default=1)
     p.add_argument("--batch-size", type=int, default=64,
                    help="per-replica batch size")
@@ -98,7 +99,7 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                    default=None,
                    help="evaluate the full-res composition lazily at loss "
                         "points (default); --no-flow_up_lazy materializes "
-                        "the 720x1280 fields (not ported)")
+                        "the 720x1280 fields")
     p.add_argument("--alpha1", type=float, default=None)
     p.add_argument("--alpha2", type=float, default=None)
     p.add_argument("--flow_cat_norm", action="store_true")

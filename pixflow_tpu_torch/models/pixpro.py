@@ -118,6 +118,73 @@ class PixPro(nn.Module):
         """-> normalized projections (the targets); the caller stops gradients."""
         return l2_normalize(self.projector_k(self.encoder_k(im)))
 
+    # --- multi-span loss (use_flow_frames) -------------------------------
+
+    def multi_span_loss(self, ims1, ims2, coords1, coords2, flows_fwd, flows_bwd,
+                        masks_fwd, masks_bwd, spans, n_frames_eff, plain: bool = False):
+        """The loss over every (span, start) window of the frame stack: window
+        (length l, start s) pairs the view-1 crop of frame s with the view-2
+        crop of frame s+l, warped by that window's flow; each sample averages
+        its pair losses over the windows its real frame count reaches.
+
+        ims1 [B, F, H, W, 3] view-1 crops of frames 0..F-1 (F = n_frames-1);
+        ims2 [B, F, H, W, 3] view-2 crops of frames 1..F; coords1/coords2
+        [B, F, 10]; flows_fwd/flows_bwd a list of S `LazyFlowUp`s or dense
+        [S, B, h, w, 2] fields, masks None or [S, B, h, w], all in `spans`
+        order (`ops.flow.span_windows`); n_frames_eff [B] real frame counts.
+        The pair losses run through K1 (`plain=True`: its plain versions).
+        Returns (loss, stats), stats per sample over its valid windows."""
+        b, f = ims1.shape[:2]
+        flat = lambda x: x.reshape((b * f,) + x.shape[2:])
+        unflat = lambda x: x.reshape((b, f) + x.shape[1:])
+        dev = ims1.device.type
+        with torch.autocast(dev, dtype=torch.bfloat16,
+                            enabled=self.dtype == torch.bfloat16):
+            if self.fuse_views:
+                both = torch.cat([flat(ims1), flat(ims2)], dim=0)
+                pred_1, pred_2 = self.online(both).chunk(2)
+                with torch.no_grad():
+                    proj_1_ng, proj_2_ng = self.momentum_branch(both).chunk(2)
+            else:
+                pred_1, pred_2 = self.online(flat(ims1)), self.online(flat(ims2))
+                with torch.no_grad():
+                    proj_1_ng = self.momentum_branch(flat(ims1))
+                    proj_2_ng = self.momentum_branch(flat(ims2))
+        pred_1, pred_2 = unflat(pred_1), unflat(pred_2)
+        proj_1_ng, proj_2_ng = unflat(proj_1_ng), unflat(proj_2_ng)
+
+        eff = n_frames_eff.to(torch.float32)
+        zeros = lambda: torch.zeros((b,), dtype=torch.float32, device=ims1.device)
+        loss_1, loss_2, weight = zeros(), zeros(), zeros()
+        pos_num_1, pos_num_2, pos_mean_1, pos_mean_2 = zeros(), zeros(), zeros(), zeros()
+        with torch.autocast(dev, enabled=False):
+            for i, (length, s) in enumerate(spans):
+                e = s + length  # target frame index
+                valid = (e <= (eff - 1.0)).to(torch.float32)
+                l1, (pn1, pm1) = pixpro_pair_loss_fused(
+                    pred_1[:, s], proj_2_ng[:, e - 1], coords1[:, s], coords2[:, e - 1],
+                    self.pixpro_pos_ratio, flow=flows_fwd[i],
+                    flow_mask=None if masks_fwd is None else masks_fwd[i],
+                    plain=plain, reduce=False)
+                l2, (pn2, pm2) = pixpro_pair_loss_fused(
+                    pred_2[:, e - 1], proj_1_ng[:, s], coords2[:, e - 1], coords1[:, s],
+                    self.pixpro_pos_ratio, flow=flows_bwd[i],
+                    flow_mask=None if masks_bwd is None else masks_bwd[i],
+                    plain=plain, reduce=False)
+                loss_1 = loss_1 + valid * l1
+                loss_2 = loss_2 + valid * l2
+                weight = weight + valid
+                pos_num_1 = pos_num_1 + valid * pn1
+                pos_num_2 = pos_num_2 + valid * pn2
+                pos_mean_1 = pos_mean_1 + valid * pm1
+                pos_mean_2 = pos_mean_2 + valid * pm2
+
+        denom = torch.clamp(weight, min=1.0)
+        loss = torch.mean((loss_1 + loss_2) / denom)
+        stats = {"pos_num_1": pos_num_1 / denom, "pos_mean_1": pos_mean_1 / denom,
+                 "pos_num_2": pos_num_2 / denom, "pos_mean_2": pos_mean_2 / denom}
+        return loss, stats
+
     # --- full loss (both views) ------------------------------------------
 
     def forward(self, im1, im2, coord1, coord2, flow_fwd=None, flow_bwd=None,

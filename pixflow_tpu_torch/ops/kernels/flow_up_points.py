@@ -31,16 +31,11 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..resample import inv_f32 as _inv
 from .build import c_function
 from .point_sample import _scale, point_sample_plain
 
 Sampler = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
-
-
-def _inv(n: int) -> float:
-    """float32 reciprocal of a constant divisor: `x * _inv(n)` is XLA's
-    rewrite of `x / n` under jit."""
-    return float(np.float32(1.0) / np.float32(n))
 
 
 def _a2(alpha_2: float, hf: int, wf: int) -> float:

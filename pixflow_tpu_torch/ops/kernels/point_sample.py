@@ -11,7 +11,17 @@ bilinear, align_corners=True, zeros padding. `up=1` is `tent_warp_pallas`;
 `point_sample` launches the kernel for a CUDA tensor and takes the plain
 version, `point_sample_plain`, for a CPU tensor. The plain version is the
 JAX package's own formulation: dense composite weights over the coarse axes
-and two contractions."""
+and two contractions.
+
+    grid_sample(img, grid)[b, i, j, c] = bilinear read of img[b] at grid[b, i, j]
+
+is K2's grid-sample entry (`tent_warp_pallas`'s function at a normalised
+grid), a second kernel of the same source for the materialising flow
+algebra (`ops/flow.py`). On the card it reads in the gather's op order and
+gives `resample.grid_sample`'s bits; on the CPU it takes
+`resample.grid_sample_auto`, the JAX package's dispatch by shape (the tent
+contractions for many points over a small field, which sum in another
+order, else the gather). It counts on `grid_sample.launches`."""
 
 from __future__ import annotations
 
@@ -21,6 +31,7 @@ import functools
 import numpy as np
 import torch
 
+from ..resample import grid_sample_auto
 from .build import c_function
 
 
@@ -105,3 +116,49 @@ def point_sample(field: torch.Tensor, pts: torch.Tensor, up: int = 1) -> torch.T
 
 
 point_sample.launches = 0
+
+
+@functools.cache
+def _grid_kernel():
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    return c_function("pixflow_grid_sample", [vp, vp, vp, ci, ci, ci, ci, ci, vp])
+
+
+def grid_sample(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """K2's grid-sample entry: the CUDA kernel for CUDA tensors,
+    `resample.grid_sample_auto` for CPU tensors. img [B, H, W, C] float32,
+    grid [B, Hg, Wg, 2] float32 normalised (x, y), both contiguous and
+    8-byte aligned; returns [B, Hg, Wg, C] float32 (bilinear,
+    align_corners=True, zeros padding)."""
+    if img.device.type == "cpu":
+        return grid_sample_auto(img, grid)
+    if img.device.type != "cuda" or grid.device != img.device:
+        raise ValueError(f"grid_sample: img on {img.device}, grid on {grid.device}; "
+                         f"both must be on one CUDA device")
+    if img.dtype != torch.float32 or grid.dtype != torch.float32:
+        raise ValueError(f"grid_sample takes float32 (got {img.dtype}, {grid.dtype})")
+    if img.dim() != 4 or grid.dim() != 4 or grid.shape[-1] != 2 \
+            or grid.shape[0] != img.shape[0]:
+        raise ValueError(f"grid_sample shapes: img {tuple(img.shape)} must be "
+                         f"[B,H,W,C], grid {tuple(grid.shape)} [B,Hg,Wg,2]")
+    if not (img.is_contiguous() and grid.is_contiguous()):
+        raise ValueError("grid_sample takes contiguous tensors")
+    if grid.data_ptr() % 8:
+        raise ValueError("grid_sample: the grid must be 8-byte aligned (float2 loads)")
+    b, h, w, c = img.shape
+    _, gh, gw, _ = grid.shape
+    n = gh * gw
+    if img.numel() >= 2 ** 31 or b * n * max(c, 2) >= 2 ** 31:
+        raise ValueError("grid_sample: too large for the kernel's 32-bit offsets")
+    out = torch.empty((b, gh, gw, c), dtype=torch.float32, device=img.device)
+    if out.numel() == 0:
+        return out
+    rc = _grid_kernel()(img.data_ptr(), grid.data_ptr(), out.data_ptr(), b, h, w, c, n,
+                        torch.cuda.current_stream(img.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"grid_sample kernel launch failed (cudaError {rc})")
+    grid_sample.launches += 1
+    return out
+
+
+grid_sample.launches = 0

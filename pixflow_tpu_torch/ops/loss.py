@@ -169,12 +169,16 @@ def fused_pair_geometry(coord_q, coord_k, feat_hw: tuple[int, int],
 
 
 def pixpro_pair_loss_fused(q, k, coord_q, coord_k, pos_ratio: float = 0.5,
-                           flow=None, flow_mask=None, plain: bool = False):
+                           flow=None, flow_mask=None, plain: bool = False,
+                           reduce: bool = True):
     """The pair loss over K1 (`kernels.fused_pair_sums`), same signature and
-    return contract as `pixpro_pair_loss`. The mask uses the kernel's
+    return contract as `pixpro_pair_loss`; `reduce=False` returns the
+    per-sample losses [B] (multi-span). The mask uses the kernel's
     `dist * inv_diag < pos_ratio`; the mask sum is a constant of the
     gradient (stop-gradient in the denominator). `plain=True` takes K1's
-    plain versions, forward and backward, for a comparison run."""
+    plain versions, forward and backward, for a comparison run. q and k may
+    be strided views (a frame of a multi-span stack): K1 gets contiguous
+    copies."""
     b, h, w, c = q.shape
     n = h * w
     geometry = fused_pair_geometry(coord_q, coord_k, (h, w), flow, flow_mask)
@@ -183,7 +187,7 @@ def pixpro_pair_loss_fused(q, k, coord_q, coord_k, pos_ratio: float = 0.5,
                            *geometry, pos_ratio, plain)
     pos_sum = sums[:, 1].detach()
     per_sample = sums[:, 0] / (pos_sum + 1e-6)
-    loss = -2.0 * torch.mean(per_sample)
+    loss = -2.0 * (torch.mean(per_sample) if reduce else per_sample)
     return loss, (pos_sum, pos_sum / (n * n))
 
 

@@ -1,7 +1,8 @@
 """Where the time of one recipe train step goes on the card.
 
     python -m pixflow_tpu_torch.profile_step [--recipe NAME] [--steps N] [--trace PATH]
-                                             [--plain-kernels]
+                                             [--plain-kernels] [--batch-size B]
+                                             [--use-flow-frames] [--no-flow-up-lazy]
 
 Builds the recipe's trainer (synthetic data from a seed), runs two warm-up
 steps, then traces `--steps` telemetry-free steps with `torch.profiler`
@@ -11,7 +12,10 @@ family (convolution and matmul, each of the port's CUDA kernels, BatchNorm and
 other elementwise work, optimizer), and peak device memory over the warm-up
 steps (which include cuDNN's algorithm search) and over the traced ones.
 `--plain-kernels` takes every kernel's plain PyTorch version instead.
-`--trace` also writes the Chrome trace."""
+`--use-flow-frames` profiles the multi-span step (every (span, start)
+window of the frame stack), `--no-flow-up-lazy` the materialising flow
+path, `--batch-size` overrides the recipe's batch (multi-span holds 2F
+crops a sample). `--trace` also writes the Chrome trace."""
 
 from __future__ import annotations
 
@@ -30,6 +34,7 @@ FAMILIES = (
     ("pair_sums_bwd", ("pair_sums_bwd_kernel",)),
     ("pair_sums", ("pair_sums_kernel",)),
     ("point_sample", ("point_sample_kernel",)),
+    ("grid_sample", ("grid_sample_kernel",)),
     ("flow_up_points", ("flow_up_points_kernel",)),
     ("conv_matmul", ("conv", "gemm", "Conv", "xmma", "cutlass", "sm90", "cudnn",
                      "wgrad", "dgrad", "fprop", "implicit")),
@@ -52,12 +57,19 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--trace", default="")
     ap.add_argument("--plain-kernels", action="store_true")
+    ap.add_argument("--batch-size", type=int, default=0)
+    ap.add_argument("--use-flow-frames", action="store_true")
+    ap.add_argument("--no-flow-up-lazy", action="store_true")
     args = ap.parse_args(argv)
 
     dev = resolve_device("cuda")
     torch.backends.cudnn.benchmark = True
     cfg = get_recipe(args.recipe)
     cfg.runtime.print_freq = 1_000_000  # step 0 logged, the traced ones not
+    if args.batch_size:
+        cfg.data.batch_size = args.batch_size
+    cfg.flow.use_flow_frames = cfg.flow.use_flow_frames or args.use_flow_frames
+    cfg.flow.flow_up_lazy = cfg.flow.flow_up_lazy and not args.no_flow_up_lazy
     batch = synthetic_batch(cfg, seed=0)
     trainer = build_trainer(cfg, dev, 68, plain_kernels=args.plain_kernels)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -101,7 +113,8 @@ def main(argv=None):
     n = args.steps
     print(json.dumps({
         "recipe": args.recipe, "device": torch.cuda.get_device_name(0),
-        "plain_kernels": args.plain_kernels,
+        "plain_kernels": args.plain_kernels, "batch": cfg.data.batch_size,
+        "use_flow_frames": cfg.flow.use_flow_frames, "flow_up_lazy": cfg.flow.flow_up_lazy,
         "traced_steps": n, "host_ms_per_step": 1e3 * host_s / n,
         "device_busy_ms_per_step": busy_us / 1e3 / n,
         "device_idle_share": 1.0 - busy_us / 1e6 / host_s,

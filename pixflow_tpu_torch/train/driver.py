@@ -8,14 +8,16 @@ caller gives, such as `synthetic_batch`.
 
 Logged steps (every `runtime.print_freq`, and the last of an epoch) run the
 variant of the step with the strided mask-ratio telemetry and read the
-metrics back to the host; the others run the telemetry-free variant and do
-not wait for the device. Batches cross to the card from pinned host memory
-without waiting (`to_device`)."""
+metrics back to the host (with `runtime.mask_ratio_exact`, also the
+reference's full-field mask ratio of the logged batch); the others run the
+telemetry-free variant and do not wait for the device. Batches cross to the
+card from pinned host memory without waiting (`to_device`)."""
 
 from __future__ import annotations
 
 import json
 import os
+import random
 import signal
 import threading
 import time
@@ -28,6 +30,7 @@ import torch
 from ..configs import PretrainConfig
 from ..data import build_pretrain_loader
 from ..data.datasets import frame_stats
+from ..data.transforms import get_transform, sample_photometric_params
 from ..device import resolve_device
 from ..models import PixPro
 from ..ops.kernels import KERNELS
@@ -41,13 +44,19 @@ from .state import TrainState, create_train_state
 from .train_step import make_train_step
 
 
+def multi_span(cfg: PretrainConfig) -> bool:
+    """Whether the config trains on every (span, start) window of its frame
+    stack (`use_flow_frames` with flows and more than two frames)."""
+    return cfg.flow.use_flow_frames and cfg.flow.use_flow and cfg.data.n_frames > 2
+
+
 def build_model(cfg: PretrainConfig, device=None) -> PixPro:
     """PixPro at the config's widths, seeded from `runtime.seed`, on the
     device (`cuda` unless told otherwise), convolution weights in
-    channels_last memory."""
+    channels_last memory. Multi-span keeps the views unfused, as the JAX
+    package's driver does (B*F images a call already fill the device);
+    fusing there is supported and exact (`PixPro.multi_span_loss`)."""
     dev = resolve_device(device)
-    if cfg.flow.use_flow_frames and cfg.data.n_frames > 2:
-        raise NotImplementedError("multi-span training is not ported yet")
     dtype = torch.bfloat16 if cfg.runtime.compute_dtype == "bfloat16" else torch.float32
     gen = torch.Generator().manual_seed(cfg.runtime.seed)
     model = PixPro(
@@ -59,7 +68,7 @@ def build_model(cfg: PretrainConfig, device=None) -> PixPro:
         pixpro_ins_loss_weight=cfg.model.pixpro_ins_loss_weight,
         proj_out_dim=cfg.model.feature_dim,
         dtype=dtype,
-        fuse_views=cfg.model.fuse_views,
+        fuse_views=cfg.model.fuse_views and not multi_span(cfg),
         generator=gen,
     )
     return model.to(dev, memory_format=torch.channels_last)
@@ -111,9 +120,11 @@ def build_trainer(cfg: PretrainConfig, device=None, steps_per_epoch: int = 1,
               ema_total_steps=max(steps_per_epoch * cfg.optim.epochs, 1),
               ema_base_momentum=cfg.model.pixpro_momentum,
               use_flow=cfg.flow.use_flow, flow_up=cfg.flow.flow_up,
+              flow_up_lazy=cfg.flow.flow_up_lazy,
               flow_cat_norm=cfg.flow.flow_cat_norm,
+              use_flow_frames=multi_span(cfg),
               alpha1=cfg.flow.alpha1, alpha2=cfg.flow.alpha2,
-              plain_kernels=plain_kernels)
+              device_aug=cfg.data.device_aug, plain_kernels=plain_kernels)
     return Trainer(state, make_train_step(tx, **kw),
                    make_train_step(tx, flow_telemetry=False, **kw),
                    max(cfg.runtime.print_freq, 1))
@@ -169,6 +180,16 @@ def _crop_coords(rng, b: int, h_img: int, w_img: int, near=None) -> np.ndarray:
                     axis=1).astype(np.float32)
 
 
+def _photometric_params(rng, shape: tuple, view: int) -> np.ndarray:
+    """[*shape, PARAM_DIM] BYOL photometric parameters of view 1 or 2, drawn
+    by the loader's own sampler from streams seeded by `rng`."""
+    t = get_transform("BYOL", 0.08, device_photometric=True)[view - 1]
+    seeds = rng.integers(0, 2 ** 31, int(np.prod(shape)))
+    params = [sample_photometric_params(t.photometric, random.Random(int(x)))
+              for x in seeds]
+    return np.stack(params).reshape(*shape, -1).astype(np.float32)
+
+
 def synthetic_batch(cfg: PretrainConfig, seed: int,
                     orig_hw: tuple[int, int] = (720, 1280)) -> dict:
     """A batch at the config's shapes, made with numpy from `seed`: uint8
@@ -178,17 +199,43 @@ def synthetic_batch(cfg: PretrainConfig, seed: int,
     few coarse pixels, as the JAX package's multi-chip dry run makes them;
     scaled with the frame width otherwise), with the backward flows close
     to the reversed negated forward ones, so that the cycle mask keeps most
-    points."""
+    points.
+
+    Multi-span configs (`multi_span`) get the loader's multi-span keys in
+    place of the two crops: `ims1`/`ims2` [B, F, S, S, 3] uint8 and
+    `coords1`/`coords2` [B, F, 10] (F = n_frames - 1; every crop within a
+    tenth of the frame of one window per sample) and `n_frames_eff` [B]
+    (every video whole). With `data.device_aug`, BYOL photometric parameters
+    `aug1`/`aug2` [B, P], or `augs1`/`augs2` [B, F, P]."""
     rng = np.random.default_rng(seed)
     b, s = cfg.data.batch_size, cfg.data.image_size
     h_img, w_img = orig_hw
-    coord1 = _crop_coords(rng, b, h_img, w_img)
-    batch = {
-        "im1": rng.integers(0, 256, (b, s, s, 3), dtype=np.uint8),
-        "im2": rng.integers(0, 256, (b, s, s, 3), dtype=np.uint8),
-        "coord1": coord1,
-        "coord2": _crop_coords(rng, b, h_img, w_img, near=coord1),
-    }
+    if multi_span(cfg):
+        f = cfg.data.n_frames - 1
+        anchor = _crop_coords(rng, b, h_img, w_img)
+        crops = lambda: np.stack([_crop_coords(rng, b, h_img, w_img, near=anchor)
+                                  for _ in range(f)], axis=1)
+        batch = {
+            "ims1": rng.integers(0, 256, (b, f, s, s, 3), dtype=np.uint8),
+            "ims2": rng.integers(0, 256, (b, f, s, s, 3), dtype=np.uint8),
+            "coords1": crops(),
+            "coords2": crops(),
+            "n_frames_eff": np.full(b, cfg.data.n_frames, np.int32),
+        }
+        if cfg.data.device_aug:
+            batch["augs1"] = _photometric_params(rng, (b, f), 1)
+            batch["augs2"] = _photometric_params(rng, (b, f), 2)
+    else:
+        coord1 = _crop_coords(rng, b, h_img, w_img)
+        batch = {
+            "im1": rng.integers(0, 256, (b, s, s, 3), dtype=np.uint8),
+            "im2": rng.integers(0, 256, (b, s, s, 3), dtype=np.uint8),
+            "coord1": coord1,
+            "coord2": _crop_coords(rng, b, h_img, w_img, near=coord1),
+        }
+        if cfg.data.device_aug:
+            batch["aug1"] = _photometric_params(rng, (b,), 1)
+            batch["aug2"] = _photometric_params(rng, (b,), 2)
     if cfg.flow.use_flow:
         k, fh, fw = cfg.data.n_frames - 1, h_img // 8, w_img // 8
         amp = np.float32(fw / 160)
@@ -215,16 +262,8 @@ def check_ported(cfg: PretrainConfig) -> None:
     its place."""
     d, f, r = cfg.data, cfg.flow, cfg.runtime
     missing = [
-        (d.device_aug, "--device-aug (item 3, with ops/augment.py)"),
-        (r.mask_ratio_exact, "--mask-ratio-exact (item 3, ops/flow.py)"),
-        (f.use_flow and f.use_flow_frames and d.n_frames > 2,
-         "--use_flow_frames with n_frames > 2, multi-span (item 3)"),
         (f.use_flow and not f.use_flow_file,
          "--use_flow without --use_flow_file, live RAFT (item 6)"),
-        (f.use_flow and f.use_flow_file and not f.flow_up,
-         "flows composed at 1/8 resolution without --flow_up (item 3, ops/flow.py)"),
-        (f.use_flow and f.use_flow_file and f.flow_up and not f.flow_up_lazy,
-         "--flow_up with --no-flow_up_lazy, the materializing path (item 3)"),
         (r.checkpoint_backend == "orbax", "--checkpoint-backend orbax (item 4)"),
         (d.loader_backend == "grain", "--loader-backend grain (item 4)"),
         (r.mesh_shape is not None and r.mesh_shape > 1,
@@ -235,6 +274,27 @@ def check_ported(cfg: PretrainConfig) -> None:
     for unported, what in missing:
         if unported:
             raise NotImplementedError(f"{what} is not ported (ROADMAP.md, Queue 1)")
+
+
+def _exact_mask_ratio_fn(cfg: PretrainConfig) -> Callable:
+    """`--mask-ratio-exact`: the reference's full-field mask ratio
+    (`util.py:360-366`) of a logged batch, through the materialising
+    composition (K2's grid-sample entry on the card), in place of the
+    per-step strided estimate. (flows_fwd, flows_bwd) [B, K, h, w, 2] ->
+    (fwd, bwd) floats, averaged over the batch and, multi-span, the
+    windows."""
+    from ..ops.flow import compose_and_mask, mask_ratio
+
+    @torch.no_grad()
+    def ratio(flows_fwd, flows_bwd):
+        _, _, mf, mb = compose_and_mask(
+            flows_fwd.to(torch.float32), flows_bwd.to(torch.float32),
+            flow_up=cfg.flow.flow_up, use_flow_frames=multi_span(cfg),
+            alpha_1=cfg.flow.alpha1, alpha_2=cfg.flow.alpha2,
+            is_norm=cfg.flow.flow_cat_norm)
+        return float(torch.mean(mask_ratio(mf))), float(torch.mean(mask_ratio(mb)))
+
+    return ratio
 
 
 def _verbose_dump(batch, n_frames: int):
@@ -366,6 +426,10 @@ def _train(cfg: PretrainConfig, dev: torch.device, model: Optional[PixPro],
         max_epoch = cfg.optim.epochs
         if cfg.runtime.debug_epochs:
             max_epoch = min(max_epoch, start_epoch + cfg.runtime.debug_epochs - 1)
+        exact_mask = None
+        if (cfg.runtime.mask_ratio_exact and cfg.flow.use_flow
+                and cfg.flow.alpha1 is not None and cfg.flow.alpha2 is not None):
+            exact_mask = _exact_mask_ratio_fn(cfg)
         metrics_writer = MetricsWriter(out_dir, use_tensorboard=cfg.runtime.tensorboard)
         launches0 = {k.__name__: k.launches for k in KERNELS}
         loss_meter, time_meter = AverageMeter(), AverageMeter()
@@ -380,7 +444,10 @@ def _train(cfg: PretrainConfig, dev: torch.device, model: Optional[PixPro],
                     preempted = True
                     preempt_idx = idx  # this batch has NOT been stepped
                     break
-                n_eff = batch.pop("n_frames_eff", None)
+                if multi_span(cfg):  # the step weights its windows by it
+                    n_eff = batch.get("n_frames_eff")
+                else:
+                    n_eff = batch.pop("n_frames_eff", None)
                 batch.pop("index", None)
                 batch.pop("target", None)
                 if cfg.runtime.verbose and cfg.flow.use_flow:
@@ -415,6 +482,12 @@ def _train(cfg: PretrainConfig, dev: torch.device, model: Optional[PixPro],
                     if "mask_ratio_fwd" in metrics:
                         extra = (f" mask_r {metrics['mask_ratio_fwd']:.3f}/"
                                  f"{metrics['mask_ratio_bwd']:.3f}")
+                    if exact_mask is not None and "flows_fwd" in device_batch:
+                        r_f, r_b = exact_mask(device_batch["flows_fwd"],
+                                              device_batch["flows_bwd"])
+                        metrics["mask_ratio_exact_fwd"] = r_f
+                        metrics["mask_ratio_exact_bwd"] = r_b
+                        extra += f" mask_r_exact {r_f:.3f}/{r_b:.3f}"
                     if n_eff is not None:
                         mean_f, no_flow_r, _ = frame_stats(n_eff, cfg.data.n_frames)
                         extra += f" frames {mean_f:.2f} (no-flow {no_flow_r:.1%})"

@@ -18,7 +18,8 @@ from pixflow_tpu_torch.ops.kernels import (cycle_mask_points, cycle_mask_points_
                                            flow_up_points, flow_up_points_plain,
                                            fused_pair_sums, pair_sums, pair_sums_backward,
                                            pair_sums_backward_plain, pair_sums_plain,
-                                           point_sample, point_sample_plain)
+                                           grid_sample, point_sample, point_sample_plain)
+from pixflow_tpu_torch.ops import resample
 from pixflow_tpu_torch.ops.loss import bin_centers
 from pixflow_tpu_torch.train import synthetic_batch
 
@@ -331,7 +332,7 @@ def test_train_on_the_card_from_files(dev, tmp_path):
     launches = {k.__name__: k.launches - before[k.__name__] for k in KERNELS}
     assert state.step == 2
     assert launches == {"pair_sums": 4, "pair_sums_backward": 4, "point_sample": 0,
-                        "flow_up_points": 4 + 4}
+                        "flow_up_points": 4 + 4, "grid_sample": 0}
     with open(tmp_path / "out" / "log.txt") as f:
         assert f"kernel launches: {json.dumps(launches)}" in f.read()
     with open(tmp_path / "out" / "metrics.jsonl") as f:
@@ -347,3 +348,112 @@ def test_train_on_the_card_from_files(dev, tmp_path):
     assert all(got[n].device.type == "cuda" and torch.equal(got[n], want[n]) for n in want)
     assert all(torch.equal(v, state.opt_state.momentum[n])
                for n, v in restored.opt_state.momentum.items())
+
+
+# --- K2's grid-sample entry and the materialising flow path -----------------
+
+# the composition's reads: a 1/8-res field read at its own pixels (without
+# --flow_up), a full-res field read at its 921600 pixels (--flow_up); and a
+# small field of three channels
+GRID_SHAPES = [(64, 90, 160, 2, (90, 160)), (64, 720, 1280, 2, (720, 1280)),
+               (3, 7, 9, 3, (5, 11))]
+
+
+@pytest.mark.parametrize("b,h,w,c,grid_hw", GRID_SHAPES)
+def test_grid_sample_kernel_equals_the_gather(dev, b, h, w, c, grid_hw):
+    """In the gather's op order: the plain gather's bits, out-of-field taps
+    included."""
+    g = torch.Generator(device=dev).manual_seed(h)
+    img = 3.0 * torch.randn(b, h, w, c, device=dev, generator=g)
+    grid = 2.4 * torch.rand(b, *grid_hw, 2, device=dev, generator=g) - 1.2
+    grid[0, 0, :3] = torch.tensor([[-1.0, -1.0], [1.0, 1.0], [1e9, 0.0]], device=dev)
+    before = grid_sample.launches
+    got = grid_sample(img, grid)
+    want = resample.grid_sample(img, grid)
+    torch.cuda.synchronize()
+    assert grid_sample.launches == before + 1
+    assert got.shape == want.shape == (b, *grid_hw, c)
+    assert torch.equal(got, want)
+
+
+def test_grid_sample_rejects_what_the_kernel_does_not_take(dev):
+    img = torch.randn(2, 9, 16, 2, device=dev)
+    grid = torch.rand(2, 4, 5, 2, device=dev)
+    with pytest.raises(ValueError):
+        grid_sample(img.double(), grid)
+    with pytest.raises(ValueError):
+        grid_sample(img.transpose(1, 2), grid)
+    with pytest.raises(ValueError):
+        grid_sample(img, grid[:1].contiguous())
+    with pytest.raises(ValueError):  # 4 bytes off the float2 alignment
+        grid_sample(img, torch.rand(81, device=dev)[1:].reshape(2, 4, 5, 2))
+    assert grid_sample(img, torch.empty(2, 0, 3, 2, device=dev)).shape == (2, 0, 3, 2)
+
+
+def _step_runs(dev, cfg, seed):
+    """One f32 step through the kernels and one through their plain
+    versions, from the same weights and batch: (metrics, state dict,
+    launches) for each."""
+    import copy
+
+    from pixflow_tpu_torch.models import init_momentum_from_online
+    from pixflow_tpu_torch.ops.kernels import KERNELS
+    from pixflow_tpu_torch.train import build_model, build_trainer, run_steps, to_device
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    batch = to_device(synthetic_batch(cfg, seed=seed, orig_hw=(96, 160)), dev)
+    model = build_model(cfg, dev)
+    init_momentum_from_online(model)
+    out = []
+    for plain in (False, True):
+        tr = build_trainer(cfg, dev, 10, model=copy.deepcopy(model), plain_kernels=plain)
+        before = {k.__name__: k.launches for k in KERNELS}
+        tr = run_steps(cfg, [batch], 1, dev, trainer=tr)
+        torch.cuda.synchronize()
+        out.append((tr.history[0], tr.state.model.state_dict(),
+                    {k.__name__: k.launches - before[k.__name__] for k in KERNELS}))
+    torch.backends.cudnn.deterministic = False
+    return out
+
+
+def _small_cfg(**flow):
+    cfg = get_recipe("pretrain_bdd100k_2000ep_nframe6")
+    cfg.data.batch_size, cfg.data.image_size, cfg.data.n_frames = 2, 64, 4
+    cfg.model.arch = "resnet18"
+    cfg.runtime.compute_dtype = "float32"
+    for k, v in flow.items():
+        setattr(cfg.flow, k, v)
+    return cfg
+
+
+def test_multi_span_step_kernels_match_plain(dev):
+    """The multi-span step (K = 3: six windows) through the kernels against
+    its plain versions: 12 launches of each K1 kernel and 12 + 2
+    flow_up_points (one a window and direction, two for the logged step's
+    telemetry), none in the plain run; loss and positive pairs agree."""
+    (mk, sk, lk), (mp, sp, lp) = _step_runs(dev, _small_cfg(use_flow_frames=True), seed=2)
+    assert lk == {"pair_sums": 12, "pair_sums_backward": 12, "point_sample": 0,
+                  "flow_up_points": 12 + 2, "grid_sample": 0}
+    assert all(v == 0 for v in lp.values())
+    assert math.isfinite(mk["loss"]) and mk["pos_num"] > 0
+    assert abs(mk["loss"] - mp["loss"]) <= 1e-4 * abs(mp["loss"])
+    for key in ("pos_num_1", "pos_num_2"):
+        assert abs(mk[key] - mp[key]) <= 5e-3 * max(mp[key], 1.0)
+
+
+@pytest.mark.parametrize("flow_up,use_flow_frames,reads", [
+    (True, False, 3 + 3 + 2),        # K = 3 reads a direction, a mask read each
+    (False, False, 3 + 3 + 2),
+    (True, True, 2 * (2 * 2 + 3) + 2 * 6),  # spans 2 and 3 read; 6 windows' masks
+])
+def test_materializing_step_runs_through_k2(dev, flow_up, use_flow_frames, reads):
+    """--no-flow_up_lazy (or composition at 1/8 resolution): every read of
+    the composition and the cycle masks is a K2 grid-sample launch; the step
+    through the kernels equals the plain one's positive pairs."""
+    cfg = _small_cfg(flow_up=flow_up, flow_up_lazy=False, use_flow_frames=use_flow_frames)
+    (mk, sk, lk), (mp, sp, lp) = _step_runs(dev, cfg, seed=3)
+    assert lk["grid_sample"] == reads and lk["flow_up_points"] == 0
+    assert all(v == 0 for v in lp.values())
+    assert abs(mk["loss"] - mp["loss"]) <= 1e-4 * abs(mp["loss"])
+    assert 0.0 <= mk["mask_ratio_fwd"] <= 0.5

@@ -10,7 +10,8 @@
 (c) the CLI, `python -m pixflow_tpu_torch.main_pretrain`: a run on the CPU,
     the error without a card, the recipe-override rule against the JAX
     CLI's, and NotImplementedError for every flag whose path is not
-    ported."""
+    ported (the settings that run since multi-span and the materialising
+    path were ported: `tests/test_torch_driver_multispan.py`)."""
 
 import importlib.util
 import json
@@ -223,7 +224,7 @@ def test_cli_trains_on_the_cpu(corpus, tmp_path):
     counts = json.loads(log.split("kernel launches: ")[1].splitlines()[0])
     # on the CPU every wrapper takes its plain version: no kernel launches
     assert counts == {"pair_sums": 0, "pair_sums_backward": 0, "point_sample": 0,
-                      "flow_up_points": 0}
+                      "flow_up_points": 0, "grid_sample": 0}
 
 
 def test_cli_without_a_card_fails(corpus, tmp_path):
@@ -261,9 +262,6 @@ def test_cli_config_matches_jax_cli(argv, monkeypatch):
 
 
 UNPORTED = {
-    "device-aug": ["--device-aug"],
-    "mask-ratio-exact": ["--mask-ratio-exact"],
-    "use_flow_frames": ["--use_flow_frames"],
     "live-raft": ["--recipe", "smoke_cpu", "--use_flow", "--flow_up"],
     "checkpoint-orbax": ["--checkpoint-backend", "orbax"],
     "loader-grain": ["--loader-backend", "grain"],
@@ -271,8 +269,6 @@ UNPORTED = {
     "multihost": ["--multihost"],
     "mesh-shape": ["--mesh-shape", "2"],
     "debug": ["--debug"],
-    "no-flow_up_lazy": ["--no-flow_up_lazy"],
-    "no-flow_up": ["--no-flow_up"],
 }
 
 
@@ -283,3 +279,4 @@ def test_unported_flags_raise(flags, tmp_path):
     with pytest.raises(NotImplementedError, match="not ported"):
         main_pretrain.main(argv)
     assert not os.path.exists(tmp_path / "out")  # raised before any work
+
