@@ -17,14 +17,23 @@ from a seed, and checks which kernels that run launched. The same recipe
 then runs on its other paths: `materialize` (--no-flow_up_lazy: whole
 720 x 1280 fields through K2, held against the lazy step in float32),
 `multispan_parity_f32` and `multispan` (--use_flow_frames: all 15
-(span, start) windows, batch 32). Last, the `cli` phase trains the recipe
+(span, start) windows, batch 32). RAFT follows, with seeded random
+weights (none ship with the repository; its flows carry no meaning):
+`kernel_raft_lookup` holds K2's grid-sample entry against the plain gather
+at RAFT-small's correlation lookup shapes (720 x 1280 frames, micro-batch
+4, every pyramid level), `raft_parity_f32` RAFT small and basic through
+the kernel against the plain route, `raft` times their forwards, and
+`live_raft` trains the recipe at batch 64 with flows from RAFT-small in
+the step (no flow files). Last, the `cli` phase trains the recipe
 from files: it writes a synthetic BDD100k-shaped corpus (720 x 1280 JPEG
 frames, six a video, and .pth flows), times the port's loader alone (also
 with the photometric ops left to the card), then runs
 `python -m pixflow_tpu_torch.main_pretrain` for two epochs and again with
 `--auto-resume` for a third, and one epoch multi-span with `--device-aug`
-and `--mask-ratio-exact`, and checks the logged metrics, the checkpoints,
-the kernel launches and the step-exact resume. Each path's launches are
+and `--mask-ratio-exact`, runs `python -m pixflow_tpu_torch.precompute_flows`
+over 8 videos and one epoch of live RAFT-small through the CLI, and checks
+the logged metrics, the checkpoints, the kernel launches and the
+step-exact resume. Each path's launches are
 counted from 0 just before it runs and read just after.
 Each phase prints one JSON line; then come the `kernels` line, the card's
 `nvidia-smi` name and power limit, and last `{"ok": true, "device": ...}`.
@@ -794,12 +803,273 @@ def multispan_run(dev):
     return launches
 
 
-# --- phase 7: the CLI, training from files -----------------------------------
+# --- phase 7: RAFT, the correlation lookup through K2's grid-sample entry ----
 
-def run_cli(args, timeout):
-    """`python -m pixflow_tpu_torch.main_pretrain ARGS` in its own process
-    group, which is killed whole (forked decode workers too) on timeout."""
-    proc = subprocess.Popen([sys.executable, "-m", "pixflow_tpu_torch.main_pretrain", *args],
+RAFT_HW = (720, 1280)  # BDD100k's frames
+RAFT_MICRO_BATCH = 4   # the JAX package's per-device default (live_flow_micro_batch)
+RAFT_ITERS = 12
+
+
+def _raft_frames(b, n, seed):
+    """[b, n, 720, 1280, 3] uint8 on the card: a drifting colour grating a
+    sample (`data/synthetic.py`), shifted a few pixels a frame."""
+    from pixflow_tpu_torch.data.synthetic import grating_frame
+    rng = np.random.default_rng(seed)
+    out = np.empty((b, n, *RAFT_HW, 3), np.uint8)
+    for i in range(b):
+        base = grating_frame(seed * 1009 + i, 0, RAFT_HW)
+        dy, dx = rng.integers(-3, 4, 2)
+        for f in range(n):
+            out[i, f] = np.roll(base, (f * dy, f * dx), axis=(0, 1))
+    return torch.from_numpy(out).to("cuda")
+
+
+def _taps_inside(grid, h, w):
+    """Taps with a nonzero weight inside an [h, w] field: what a bilinear
+    read at `grid` must fetch."""
+    x = (grid[..., 0] + 1.0) * 0.5 * (w - 1)
+    y = (grid[..., 1] + 1.0) * 0.5 * (h - 1)
+    taps = 0.0
+    for xc, wx in ((torch.floor(x), 1.0 - (x - torch.floor(x))),
+                   (torch.floor(x) + 1.0, x - torch.floor(x))):
+        for yc, wy in ((torch.floor(y), 1.0 - (y - torch.floor(y))),
+                       (torch.floor(y) + 1.0, y - torch.floor(y))):
+            inside = (xc >= 0) & (xc <= w - 1) & (yc >= 0) & (yc <= h - 1)
+            taps += float((inside & (wx * wy != 0)).sum())
+    return taps
+
+
+def compare_raft_lookup(dev):
+    """K2's grid-sample entry at RAFT-small's lookup shapes, 720 x 1280
+    frames at micro-batch 4: a pyramid of 57600 images [90, 160, 1],
+    [45, 80, 1], [22, 40, 1], [11, 20, 1], each read at its 7 x 7 window
+    around targets a few pixels off the grid. Each level against the
+    plain gather (expect 0 elements to differ), timed beside the gather and
+    `F.grid_sample` on the level's NCHW view [57600, 1, h, w] (no copy);
+    the bound counts the taps the read needs, as the materialising read's
+    does."""
+    import torch.nn.functional as F
+    from pixflow_tpu_torch.models.raft.corr import build_corr_pyramid, window_grid
+    from pixflow_tpu_torch.ops import resample
+    from pixflow_tpu_torch.ops.kernels import grid_sample
+
+    b, h, w = RAFT_MICRO_BATCH, RAFT_HW[0] // 8, RAFT_HW[1] // 8
+    gen = torch.Generator(device=dev).manual_seed(60)
+    fmap1 = torch.randn(b, h, w, 128, device=dev, generator=gen)
+    fmap2 = torch.randn(b, h, w, 128, device=dev, generator=gen)
+    pyramid = build_corr_pyramid(fmap1, fmap2)
+    del fmap1, fmap2
+    coords = resample.coords_grid(h, w, device=dev)[None] \
+        + 3.0 * torch.randn(b, h, w, 2, device=dev, generator=gen)
+    centroid = coords.reshape(-1, 2)
+    levels = []
+    for lvl, corr in enumerate(pyramid):
+        n, hl, wl, c = corr.shape
+        grid = window_grid(centroid, 3, lvl, hl, wl)
+        before = grid_sample.launches
+        got = grid_sample(corr, grid)
+        launched = grid_sample.launches - before
+        want = resample.grid_sample(corr, grid)
+        torch.cuda.synchronize()
+        differ = int((got != want).sum())
+        check(differ == 0, f"raft lookup level {lvl}: {differ} elements differ from the gather")
+        taps = _taps_inside(grid, hl, wl)
+        bytes_ = min(taps * c * 4, corr.numel() * 4) + grid.numel() * 4 + got.numel() * 4
+        ops_s = taps * c * 2 / F32_OPS_PER_S
+        nchw = corr.reshape(n, 1, hl, wl)  # the same memory
+        lib = lambda: F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros",
+                                    align_corners=True)
+        lib_err = float((lib().reshape(got.shape) - want).abs().max())
+        check(lib_err <= 1e-3, f"F.grid_sample disagrees with the gather: {lib_err}")
+        levels.append(dict(level=lvl, field=[n, hl, wl, c], points=[n, grid.shape[1] ** 2],
+                           launches=launched, elements_differ=differ,
+                           max_abs_err=float((got - want).abs().max()), taps=taps,
+                           kernel_ms=cuda_ms(lambda: grid_sample(corr, grid), iters=20),
+                           plain_ms=cuda_ms(lambda: resample.grid_sample(corr, grid), iters=3),
+                           bound_ms=max(bytes_ / HBM_BYTES_PER_S, ops_s) * 1e3,
+                           bound_by="bytes" if bytes_ / HBM_BYTES_PER_S >= ops_s
+                           else "operations",
+                           library_ms=cuda_ms(lib, iters=20), library_max_abs_err=lib_err))
+        del got, want, grid
+    del pyramid
+    torch.cuda.empty_cache()
+    # one lookup: the four levels
+    total = {k: sum(lv[k] for lv in levels) for k in ("kernel_ms", "plain_ms", "bound_ms",
+                                                      "library_ms")}
+    total["max_abs_err"] = max(lv["max_abs_err"] for lv in levels)
+    total["bound_by"] = "bytes" if all(lv["bound_by"] == "bytes" for lv in levels) \
+        else "operations"
+    emit({"phase": "kernel_raft_lookup", "frames": list(RAFT_HW), "micro_batch": b,
+          "radius": 3, "levels": levels, "lookup": total, "card": nvidia_smi()})
+    return total
+
+
+def _raft_forward_ms(model, im1, im2):
+    """(median ms of a forward between CUDA events over 5 after one
+    warm-up, output of the last one, grid-entry launches of one forward)."""
+    from pixflow_tpu_torch.ops.kernels import grid_sample
+    with torch.no_grad():
+        model(im1, im2, iters=RAFT_ITERS)
+        times = []
+        for _ in range(5):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            before = grid_sample.launches
+            start.record()
+            out = model(im1, im2, iters=RAFT_ITERS)
+            end.record()
+            torch.cuda.synchronize()
+            launched = grid_sample.launches - before
+            times.append(start.elapsed_time(end))
+    return float(np.median(times)), out, launched
+
+
+def raft_parity(dev):
+    """One pair of 720 x 1280 frames through RAFT small and basic (seeded
+    random weights, TF32 off, cuDNN deterministic): the lookup through K2's
+    grid entry against the plain gather. The entry repeats the gather's op
+    order, so the flows should agree to the bit; the check allows 1e-4 px."""
+    from pixflow_tpu_torch.models.raft import seeded_raft
+    from pixflow_tpu_torch.ops.kernels import grid_sample
+
+    torch.backends.cudnn.deterministic = True
+    frames = _raft_frames(1, 2, seed=61)
+    out = {}
+    for small in (True, False):
+        model = seeded_raft(small, seed=62).to(dev)
+        with torch.no_grad():
+            before = grid_sample.launches
+            low_k, up_k = model(frames[:, 0], frames[:, 1], iters=RAFT_ITERS)
+            launched = grid_sample.launches - before
+            low_p, up_p = model(frames[:, 0], frames[:, 1], iters=RAFT_ITERS, plain=True)
+        torch.cuda.synchronize()
+        name = "small" if small else "basic"
+        out[name] = {"flow_low_max_abs_diff_px": float((low_k - low_p).abs().max()),
+                     "flow_up_max_abs_diff_px": float((up_k - up_p).abs().max()),
+                     "flow_low_elements_differ": int((low_k != low_p).sum()),
+                     "flow_low_max_abs_px": float(low_k.abs().max()),
+                     "grid_launches_kernel_route": launched,
+                     "grid_launches_plain_route": grid_sample.launches - before - launched}
+        check(launched == 4 * RAFT_ITERS and out[name]["grid_launches_plain_route"] == 0,
+              f"raft {name} parity launches {out[name]}")
+        check(torch.isfinite(low_k).all() and out[name]["flow_low_max_abs_diff_px"] <= 1e-4,
+              f"raft {name}: kernel route vs plain {out[name]}")
+        del model
+    torch.backends.cudnn.deterministic = False
+    emit({"phase": "raft_parity_f32", "frames": list(RAFT_HW), "iters": RAFT_ITERS,
+          "tf32": False, "tolerance_px": 1e-4, **out})
+
+
+def raft_run(dev):
+    """RAFT small and basic at 720 x 1280, micro-batch 4, 12 iterations:
+    ms a forward (median of 5 between CUDA events), directed pairs a
+    second, peak memory and grid-entry launches a forward. Random weights:
+    the same work as trained ones, flows without meaning."""
+    from pixflow_tpu_torch.models.raft import seeded_raft
+
+    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.allow_tf32 = True  # PyTorch's default, as a user's run
+    frames = _raft_frames(RAFT_MICRO_BATCH, 2, seed=63)
+    out = {}
+    for small in (True, False):
+        model = seeded_raft(small, seed=64).to(dev)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        ms, (low, up), launched = _raft_forward_ms(model, frames[:, 0], frames[:, 1])
+        check(bool(torch.isfinite(low).all() and torch.isfinite(up).all()),
+              "raft: non-finite flows")
+        check(tuple(up.shape) == (RAFT_MICRO_BATCH, *RAFT_HW, 2), f"raft flow_up {up.shape}")
+        check(launched == 4 * RAFT_ITERS, f"raft: {launched} grid launches a forward")
+        out["small" if small else "basic"] = {
+            "ms_per_forward": ms, "pairs_per_s": RAFT_MICRO_BATCH / (ms / 1e3),
+            "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+            "grid_launches_per_forward": launched}
+        del model, low, up
+    del frames
+    torch.cuda.empty_cache()
+    torch.backends.cudnn.allow_tf32 = False  # back to this script's f32 checks
+    emit({"phase": "raft", "frames": list(RAFT_HW), "micro_batch": RAFT_MICRO_BATCH,
+          "iters": RAFT_ITERS, "weights": "seeded random", "cudnn_tf32": True, **out,
+          "card": nvidia_smi()})
+    return out
+
+
+LIVE_FLOW_BS = 8  # --flow_bs: the reference's per-GPU default (contrast/util.py:136)
+
+
+def live_raft_run(dev, raft_path):
+    """The nframe6 recipe at batch 64 with live RAFT-small (no flow files:
+    10 directed pairs of 720 x 1280 frames a sample through RAFT each step,
+    --flow_bs 8) on the lazy flow_up path: 1 warm-up and 2 timed steps,
+    every step logged. The RAFT share is the time between CUDA events
+    around the step's RAFT pass. cuDNN takes TF32 for float32 convolutions,
+    PyTorch's default and a user's run's, for this phase (the script's
+    float32 checks turn it off)."""
+    from pixflow_tpu_torch.train import driver
+
+    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.allow_tf32 = True
+    cfg = _recipe_cfg(use_flow_file=False, flow_model=raft_path, flow_bs=LIVE_FLOW_BS)
+    cfg.runtime.print_freq = 1
+    b, n = cfg.data.batch_size, cfg.data.n_frames
+    batch = driver.synthetic_batch(cfg, seed=65, orig_hw=RAFT_HW)
+    batch = driver.to_device(batch, dev)
+    raft_events = []
+    make = driver.make_raft_fn
+
+    def timed_make(*args, **kw):  # the step's RAFT pass between CUDA events
+        fn, lazy = make(*args, **kw)
+
+        def timed(frames):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(frames)
+            end.record()
+            raft_events.append((start, end))
+            return out
+        return timed, lazy
+
+    driver.make_raft_fn = timed_make
+    try:
+        trainer = driver.build_trainer(cfg, dev, STEPS_PER_EPOCH)
+    finally:
+        driver.make_raft_fn = make
+    trainer, times, launches, peak = _timed_steps(cfg, dev, [batch], 1, 2, trainer)
+    torch.backends.cudnn.allow_tf32 = False
+    raft_ms = [s.elapsed_time(e) for s, e in raft_events]
+    logged = trainer.history
+    for m in logged:
+        check(math.isfinite(m["loss"]) and m["pos_num"] > 0, f"live raft step {m}")
+        check(0.0 <= m["mask_ratio_fwd"] <= 1.0, f"live raft mask ratio {m}")
+    steps = 3
+    pairs = 2 * (n - 1)
+    # one K2 grid read a pyramid level, iteration, directed pair and
+    # micro-batch of 8; two flow_up_points a step and two for telemetry
+    expect = {"pair_sums": 2 * steps, "pair_sums_backward": 2 * steps, "point_sample": 0,
+              "flow_up_points": 4 * steps,
+              "grid_sample": 4 * RAFT_ITERS * pairs * (b // LIVE_FLOW_BS) * steps}
+    check(launches == expect, f"live raft launches {launches}, expected {expect}")
+    del trainer, batch
+    torch.cuda.empty_cache()
+    step_ms = 1e3 * float(np.median(times))
+    emit({"phase": "live_raft", "recipe": RECIPE, "batch": b, "flow_model": "raft-small (seeded)",
+          "flow_bs": LIVE_FLOW_BS, "flow_up_lazy": True, "timed_steps": len(times),
+          "cudnn_tf32": True,
+          "step_ms": [1e3 * t for t in times], "step_ms_median": step_ms,
+          "raft_ms": raft_ms, "raft_share": float(np.median(raft_ms[1:])) / step_ms,
+          "samples_per_s": b / (step_ms / 1e3), "peak_mem_gb": peak / 1e9,
+          "launches": launches, "launches_per_step": {k: v / steps for k, v in launches.items()},
+          "logged": logged, "card": nvidia_smi()})
+    return launches
+
+
+# --- phase 8: the CLI, training from files -----------------------------------
+
+def run_cli(args, timeout, module="pixflow_tpu_torch.main_pretrain"):
+    """`python -m MODULE ARGS` in its own process group, which is killed
+    whole (forked decode workers too) on timeout; returns its stdout."""
+    proc = subprocess.Popen([sys.executable, "-m", module, *args],
                             cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                             text=True, start_new_session=True)
     try:
@@ -807,9 +1077,8 @@ def run_cli(args, timeout):
     except subprocess.TimeoutExpired:
         os.killpg(proc.pid, signal.SIGKILL)
         proc.communicate()
-        raise AssertionError(f"main_pretrain {' '.join(args)}: no end in {timeout} s")
-    check(proc.returncode == 0,
-          f"main_pretrain exited {proc.returncode}:\n{err[-4000:]}")
+        raise AssertionError(f"{module} {' '.join(args)}: no end in {timeout} s")
+    check(proc.returncode == 0, f"{module} exited {proc.returncode}:\n{err[-4000:]}")
     return out
 
 
@@ -861,7 +1130,7 @@ def sample_costs(dataset, n=32) -> dict:
     return {k: 1e3 * v / len(videos) for k, v in parts.items()}
 
 
-def cli_run(recipe_step_ms, extra_args=()):
+def cli_run(recipe_step_ms, raft_path, extra_args=()):
     from pixflow_tpu_torch.configs import get_recipe
     from pixflow_tpu_torch.data import build_pretrain_loader
     from pixflow_tpu_torch.data.synthetic import write_video_corpus
@@ -940,6 +1209,8 @@ def cli_run(recipe_step_ms, extra_args=()):
         epoch2 = [r["time"] for r in recs if r["epoch"] == 2]
         step_ms = 1e3 * float(np.median(epoch2))
         multispan = cli_multispan(data_dir, os.path.join(tmp, "out_multispan"), workers)
+        precompute = cli_precompute(data_dir, os.path.join(tmp, "precomputed"), raft_path)
+        live = cli_live_raft(data_dir, tmp, raft_path, workers)
         emit({"phase": "cli", "recipe": RECIPE, "videos": CLI_VIDEOS, "frame_hw": CLI_FRAME_HW,
               "corpus_bytes": corpus_bytes, "corpus_write_s": corpus_s,
               "cpu_count": os.cpu_count(), "affinity": cores, "workers": workers,
@@ -952,6 +1223,7 @@ def cli_run(recipe_step_ms, extra_args=()):
               "peak_mem_mb": max(r.get("peak_memory_mb", 0.0) for r in recs),
               "launches": counts, "first_resumed": first_resumed,
               "losses": [r["loss"] for r in recs], "multispan": multispan,
+              "precompute_flows": precompute, "live_raft": live,
               "card": nvidia_smi()})
 
 
@@ -993,6 +1265,99 @@ def cli_multispan(data_dir, out_dir, workers):
             "launches": counts, "losses": [r["loss"] for r in recs]}
 
 
+def cli_precompute(data_dir, out_dir, raft_path):
+    """`python -m pixflow_tpu_torch.precompute_flows` over every 32nd video
+    of the corpus (8 of its 256 six-frame videos: 80 directed pairs), RAFT-
+    small, 4 pairs a forward, .pth files as the loader reads them."""
+    shard = CLI_VIDEOS // 8
+    t = time.perf_counter()
+    out = run_cli(["--data-dir", os.path.join(data_dir, "train"), "--out-dir", out_dir,
+                   "--flow-model", raft_path, "--format", "pth", "--shard", "0", str(shard)],
+                  timeout=300, module="pixflow_tpu_torch.precompute_flows")
+    run_s = time.perf_counter() - t
+    done = json.loads(out.strip().splitlines()[-1])
+    check(done["videos"] == 8 and done["pairs"] == 80 and done["device"].startswith("cuda"),
+          f"precompute_flows: {done}")
+    shapes = set()
+    for d in ("forward", "backward"):
+        files = sorted(os.listdir(os.path.join(out_dir, d)))
+        check(len(files) == 8, f"precompute_flows {d}: {files}")
+        for name in files:
+            flows = torch.load(os.path.join(out_dir, d, name), weights_only=True)
+            check(bool(torch.isfinite(flows).all()), f"precompute_flows {d}/{name}: not finite")
+            shapes.add(tuple(flows.shape))
+    check(shapes == {(5, 2, CLI_FRAME_HW[0] // 8, CLI_FRAME_HW[1] // 8)},
+          f"precompute_flows shapes {shapes}")
+    # after the first video: cuDNN's algorithm search is behind
+    steady = (done["pairs"] - 10) / (done["seconds"] - done["first_video_seconds"])
+    return {"videos": done["videos"], "pairs": done["pairs"], "raft_s": done["seconds"],
+            "first_video_s": done["first_video_seconds"],
+            "pairs_per_s": done["pairs"] / done["seconds"],
+            "pairs_per_s_after_first_video": steady, "run_s": run_s,
+            "shape_pth": list(shapes.pop())}
+
+
+# the nframe6 recipe's settings as flags: under --recipe, --use_flow_file
+# stays on (the JAX CLI's rule), so live RAFT takes the recipe flag by flag
+LIVE_RECIPE_FLAGS = ["--dataset", "bdd100k", "--aug", "BYOL", "--crop", "0.08",
+                     "--image-size", "224", "--n-frames", "6", "--use_flow", "--flow_up",
+                     "--alpha1", "0.01", "--alpha2", "0.5", "--arch", "resnet50",
+                     "--pixpro-p", "2", "--pixpro-momentum", "0.99", "--pixpro-pos-ratio", "0.7",
+                     "--pixpro-transform-layer", "1", "--pixpro-ins-loss-weight", "0",
+                     "--optimizer", "lars", "--base-lr", "1.0", "--lr-scheduler", "cosine",
+                     "--warmup-epoch", "5", "--warmup-multiplier", "100",
+                     "--weight-decay", "1e-5", "--momentum", "0.9", "--epochs", "2000",
+                     "--compute-dtype", "bfloat16"]
+LIVE_CLI_BATCH = 16
+
+
+def cli_live_raft(data_dir, tmp, raft_path, workers):
+    """One epoch of live RAFT-small through the CLI, from JPEG frames, on
+    32 of the corpus's videos (2 steps at batch 16, --flow_bs 8): the
+    nframe6 recipe's settings as flags, no --recipe, no --use_flow_file."""
+    from pixflow_tpu_torch import main_pretrain
+    from pixflow_tpu_torch.configs import get_recipe
+
+    b = LIVE_CLI_BATCH
+    flags = [*LIVE_RECIPE_FLAGS, "--flow_model", raft_path, "--flow_bs", str(LIVE_FLOW_BS),
+             "--batch-size", str(b)]
+    cfg, _, _ = main_pretrain.parse_args(flags)
+    want = get_recipe(RECIPE)  # the recipe, with this run's changes
+    want.data.batch_size = b
+    want.flow.use_flow_file, want.flow.flow_model, want.flow.flow_bs = False, raft_path, LIVE_FLOW_BS
+    check(cfg.to_json() == want.to_json(), "live CLI flags differ from the recipe's settings")
+    check(not cfg.flow.use_flow_file, "live CLI flags read flow files")
+
+    sub = os.path.join(tmp, "bdd_live", "images", "train")
+    os.makedirs(sub)
+    for name in sorted(os.listdir(os.path.join(data_dir, "train")))[:2 * b]:
+        os.symlink(os.path.join(data_dir, "train", name), os.path.join(sub, name))
+    out_dir = os.path.join(tmp, "out_live_raft")
+    t = time.perf_counter()
+    run_cli([*flags, "--data-dir", os.path.dirname(sub), "--output-dir", out_dir,
+             "--print-freq", "1", "--num-workers", str(workers), "--worker-mode", "process",
+             "--debug-epochs", "1"], timeout=420)
+    run_s = time.perf_counter() - t
+    recs, counts = read_cli_run(out_dir)
+    check([r["step"] for r in recs] == [1, 2], f"live CLI logged steps {[r['step'] for r in recs]}")
+    for r in recs:
+        check(math.isfinite(r["loss"]) and r["pos_num"] > 0, f"live CLI step {r}")
+        check(0.0 <= r["mask_ratio_fwd"] <= 1.0, f"live CLI mask ratio {r}")
+    with open(os.path.join(out_dir, "config.json")) as f:
+        flow = json.load(f)["flow"]
+    check(flow["use_flow"] and not flow["use_flow_file"] and flow["small"],
+          f"live CLI config {flow}")
+    pairs = 10
+    expect = [{"pair_sums": 4, "pair_sums_backward": 4, "point_sample": 0, "flow_up_points": 8,
+               "grid_sample": 4 * RAFT_ITERS * pairs * (b // LIVE_FLOW_BS) * 2}]
+    check(counts == expect, f"live CLI launches {counts}, expected {expect}")
+    return {"batch": b, "steps": 2, "flow_bs": LIVE_FLOW_BS, "run_s": run_s,
+            "step_s": [r["time"] for r in recs],
+            "peak_mem_mb": max(r.get("peak_memory_mb", 0.0) for r in recs),
+            "mask_ratio": [[r["mask_ratio_fwd"], r["mask_ratio_bwd"]] for r in recs],
+            "launches": counts, "losses": [r["loss"] for r in recs]}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
@@ -1004,7 +1369,8 @@ def main():
     from pixflow_tpu_torch.configs import get_recipe
 
     dev = resolve_device("cuda:0")
-    torch.backends.cuda.matmul.allow_tf32 = False  # f32 stays f32 throughout
+    # f32 stays f32 (the timed RAFT phases take cuDNN's TF32 default)
+    torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = nvidia_smi()
     t0 = time.perf_counter()
@@ -1024,8 +1390,18 @@ def main():
     mat_launches = materialize_run(dev)
     multispan_parity(dev)
     multispan_run(dev)
-    torch.cuda.empty_cache()  # the CLI's process needs the card's memory
-    cli_run(recipe_step_ms)
+    torch.cuda.empty_cache()
+    lookup = compare_raft_lookup(dev)
+    raft_parity(dev)
+    raft_run(dev)
+    from pixflow_tpu_torch.models.raft import seeded_raft
+    with tempfile.TemporaryDirectory(prefix="pixflow_raft_") as raft_dir:
+        raft_path = os.path.join(raft_dir, "raft-small.pth")  # 'small' in the name
+        torch.save({f"module.{k}": v for k, v in seeded_raft(True, seed=66).state_dict().items()},
+                   raft_path)
+        live_launches = live_raft_run(dev, raft_path)
+        torch.cuda.empty_cache()  # the CLI's process needs the card's memory
+        cli_run(recipe_step_ms, raft_path)
 
     def entry(name, source, replaces, launches, m):
         return {"name": name, "route": "cuda", "source": f"pixflow_tpu_torch/csrc/{source}.cu",
@@ -1038,7 +1414,10 @@ def main():
     # backward (dq alone: the key features are targets) on bf16 features,
     # the fused flow_up evaluation on one direction's bin centers (the
     # recipe); K2 (off that path) at up=1, tent_warp_pallas's function; K2's
-    # grid-sample entry at the full-res read of the materialising path
+    # grid-sample entry at the full-res read of the materialising path, and
+    # again at RAFT's lookup (one lookup, four levels, at 720p micro-batch 4:
+    # ms, bound, plain and F.grid_sample summed over its four launches;
+    # launches from the live-RAFT recipe run)
     kernels = [entry("pair_sums", "pair_sums", "pixflow_tpu/ops/pallas/pair_loss.py:36",
                      launches["pair_sums"], k1["bfloat16"]),
                entry("pair_sums_backward", "pair_sums_bwd",
@@ -1049,7 +1428,9 @@ def main():
                entry("flow_up_points", "flow_up_points", "pixflow_tpu/ops/pallas/warp.py:50",
                      launches["flow_up_points"], fused["warp"]),
                entry("grid_sample", "point_sample", "pixflow_tpu/ops/pallas/warp.py:50",
-                     mat_launches["grid_sample"], k2["grid_sample"]["flow_up"])]
+                     mat_launches["grid_sample"], k2["grid_sample"]["flow_up"]),
+               entry("grid_sample_raft_lookup", "point_sample",
+                     "pixflow_tpu/ops/pallas/warp.py:50", live_launches["grid_sample"], lookup)]
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -4,14 +4,15 @@
 
 Every field is kept so the two stay interchangeable. The port reads
 `data.*` (the loader, `train/driver.py:train`), `flow.*` for file flows
-(lazy or materialising flow_up, composition at the stored resolution,
-multi-span), `model.*`, `optim.*` and `runtime.*`, where
-`checkpoint_backend="msgpack"` names the single-file backend (written
-with `torch.save` here). Settings whose path is not ported raise
-NotImplementedError (`train/driver.py:check_ported`):
-`data.loader_backend="grain"`, live RAFT (`flow.use_flow` without
-`use_flow_file`, and `flow_model/small/flow_bs/raft_*`),
-`checkpoint_backend="orbax"`, `mesh_shape` > 1, `wandb` and `debug`;
+and live RAFT (`flow.use_flow` without `use_flow_file`:
+`flow_model/small/flow_bs/raft_iters`; lazy or materialising flow_up,
+composition at the stored resolution, multi-span), `model.*`, `optim.*`
+and `runtime.*`, where `checkpoint_backend="msgpack"` names the
+single-file backend (written with `torch.save` here). Settings whose path
+is not ported raise NotImplementedError (`train/driver.py:check_ported`):
+`data.loader_backend="grain"`, a bfloat16 live RAFT (`raft_dtype`,
+`raft_corr_dtype`), `checkpoint_backend="orbax"`, `mesh_shape` > 1,
+`wandb` and `debug`;
 `runtime.preempt_vote_steps` has no use in one process."""
 
 from __future__ import annotations

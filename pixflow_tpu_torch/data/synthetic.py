@@ -27,7 +27,7 @@ import torch
 from PIL import Image
 
 
-def _frame(rng_seed: int, f: int, hw: tuple[int, int]) -> np.ndarray:
+def grating_frame(rng_seed: int, f: int, hw: tuple[int, int]) -> np.ndarray:
     """Frame `f` of the video seeded by `rng_seed`: two colour gratings per
     channel, drifting with f, evaluated by separable outer products."""
     rng = np.random.default_rng(rng_seed)
@@ -69,7 +69,7 @@ def _write_video(args) -> int:
     n_bytes = 0
     for f in range(n_frames):
         path = os.path.join(vd, f"frame{f:04d}.jpg")
-        Image.fromarray(_frame(seed * 100003 + v, f, hw)).save(path, quality=quality)
+        Image.fromarray(grating_frame(seed * 100003 + v, f, hw)).save(path, quality=quality)
         n_bytes += os.path.getsize(path)
     k = n_frames - 1
     if k > 0:

@@ -106,11 +106,12 @@ def parse_args(argv: Optional[Sequence[str]] = None):
     p.add_argument("--flow_bs", type=int, default=None)
     p.add_argument("--raft_dtype", type=str, default="float32",
                    choices=["float32", "bfloat16"],
-                   help="on-the-fly RAFT compute dtype (live RAFT is not "
-                        "ported)")
+                   help="live RAFT compute dtype; float32 only (bfloat16: "
+                        "ROADMAP.md item 9)")
     p.add_argument("--raft_corr_dtype", type=str, default="follow",
                    choices=["follow", "float32", "bfloat16"],
-                   help="corr-pyramid storage dtype (live RAFT is not ported)")
+                   help="live RAFT corr-pyramid dtype; follow or float32 only "
+                        "(bfloat16: ROADMAP.md item 9)")
     p.add_argument("--use_flow_frames", action="store_true")
     p.add_argument("--use_flow_file", action="store_true")
     p.add_argument("--flow_root", type=str, default="")

@@ -6,7 +6,8 @@ each with its plain PyTorch version and a `launches` counter on its wrapper.
                         the JAX package leaves to XLA
     K2 point_sample  <- pixflow_tpu/ops/pallas/warp.py:_warp_kernel
        grid_sample      its read at a normalised grid in the gather's op
-                        order, for the materialising flow algebra
+                        order, for the materialising flow algebra and
+                        RAFT's correlation lookup
        flow_up_points   the lazy flow_up evaluation of one direction in one
                         launch: K2's tap logic, redesigned for the train
                         step's path (15 K2 launches and their ops before)

@@ -16,8 +16,10 @@ and two contractions.
     grid_sample(img, grid)[b, i, j, c] = bilinear read of img[b] at grid[b, i, j]
 
 is K2's grid-sample entry (`tent_warp_pallas`'s function at a normalised
-grid), a second kernel of the same source for the materialising flow
-algebra (`ops/flow.py`). On the card it reads in the gather's op order and
+grid), a second kernel of the same source. Its callers: the materialising
+flow algebra (`ops/flow.py`), and RAFT's correlation lookup
+(`models/raft/corr.py:lookup_corr`: [B*H*W, h_l, w_l, 1] pyramid levels
+read at (2r+1)^2 window points each, 4 levels an iteration). On the card it reads in the gather's op order and
 gives `resample.grid_sample`'s bits; on the CPU it takes
 `resample.grid_sample_auto`, the JAX package's dispatch by shape (the tent
 contractions for many points over a small field, which sum in another

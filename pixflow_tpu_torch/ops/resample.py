@@ -13,7 +13,10 @@ everything else the gather. The flow algebra (`ops/flow.py`) reads fields
 through K2's grid-sample entry (`kernels.grid_sample`), which on the card
 launches the kernel in the gather's op order for every shape and on the CPU
 takes `grid_sample_auto`, so that CPU runs follow the JAX package on both
-sides of the threshold. `resize_align_corners` and `upflow8` are two float32
+sides of the threshold. RAFT's correlation lookup
+(`models/raft/corr.py:lookup_corr`) reads its pyramid through the same
+entry on the card and through `grid_sample`, the gather, on the CPU, as
+the JAX package's `lookup_corr_gather` does. `resize_align_corners` and `upflow8` are two float32
 matrix products, as in the JAX package.
 
 Constant divisors are written as products with their float32 reciprocal

@@ -3,6 +3,7 @@
     python -m pixflow_tpu_torch.profile_step [--recipe NAME] [--steps N] [--trace PATH]
                                              [--plain-kernels] [--batch-size B]
                                              [--use-flow-frames] [--no-flow-up-lazy]
+                                             [--live-raft]
 
 Builds the recipe's trainer (synthetic data from a seed), runs two warm-up
 steps, then traces `--steps` telemetry-free steps with `torch.profiler`
@@ -15,12 +16,17 @@ steps (which include cuDNN's algorithm search) and over the traced ones.
 `--use-flow-frames` profiles the multi-span step (every (span, start)
 window of the frame stack), `--no-flow-up-lazy` the materialising flow
 path, `--batch-size` overrides the recipe's batch (multi-span holds 2F
-crops a sample). `--trace` also writes the Chrome trace."""
+crops a sample). `--live-raft` computes the flows in the step with
+RAFT-small from the batch's frames (a seeded random checkpoint, written to
+a temporary `raft-small.pth`; 8 pairs a RAFT forward, the reference's
+per-GPU default). `--trace` also writes the Chrome trace."""
 
 from __future__ import annotations
 
 import argparse
 import json
+import os
+import tempfile
 import time
 
 import torch
@@ -60,8 +66,18 @@ def main(argv=None):
     ap.add_argument("--batch-size", type=int, default=0)
     ap.add_argument("--use-flow-frames", action="store_true")
     ap.add_argument("--no-flow-up-lazy", action="store_true")
+    ap.add_argument("--live-raft", action="store_true")
     args = ap.parse_args(argv)
+    if args.live_raft:
+        with tempfile.TemporaryDirectory(prefix="pixflow_raft_") as tmp:
+            from .models.raft import seeded_raft
+            path = os.path.join(tmp, "raft-small.pth")
+            torch.save(seeded_raft(True, seed=0).state_dict(), path)
+            return _profile(args, path)
+    return _profile(args, "")
 
+
+def _profile(args, raft_path: str):
     dev = resolve_device("cuda")
     torch.backends.cudnn.benchmark = True
     cfg = get_recipe(args.recipe)
@@ -70,6 +86,9 @@ def main(argv=None):
         cfg.data.batch_size = args.batch_size
     cfg.flow.use_flow_frames = cfg.flow.use_flow_frames or args.use_flow_frames
     cfg.flow.flow_up_lazy = cfg.flow.flow_up_lazy and not args.no_flow_up_lazy
+    if raft_path:
+        cfg.flow.use_flow_file, cfg.flow.flow_model = False, raft_path
+        cfg.flow.small, cfg.flow.flow_bs = True, 8
     batch = synthetic_batch(cfg, seed=0)
     trainer = build_trainer(cfg, dev, 68, plain_kernels=args.plain_kernels)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -115,6 +134,7 @@ def main(argv=None):
         "recipe": args.recipe, "device": torch.cuda.get_device_name(0),
         "plain_kernels": args.plain_kernels, "batch": cfg.data.batch_size,
         "use_flow_frames": cfg.flow.use_flow_frames, "flow_up_lazy": cfg.flow.flow_up_lazy,
+        "live_raft": bool(raft_path), "flow_bs": cfg.flow.flow_bs if raft_path else None,
         "traced_steps": n, "host_ms_per_step": 1e3 * host_s / n,
         "device_busy_ms_per_step": busy_us / 1e3 / n,
         "device_idle_share": 1.0 - busy_us / 1e6 / host_s,

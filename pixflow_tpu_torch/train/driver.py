@@ -95,12 +95,50 @@ class Trainer:
     history: list = field(default_factory=list)
 
 
+def live_flow_micro_batch(flow_bs: Optional[int]) -> Optional[int]:
+    """RAFT's micro-batch for live flows (`--flow_bs`), as the JAX
+    package's on one device: unset, 4; <= 0, the whole batch at once; the
+    reference's default was 8 a GPU (`contrast/util.py:136`)."""
+    if flow_bs is None:
+        return 4
+    if flow_bs <= 0:
+        return None
+    return flow_bs
+
+
+def make_raft_fn(cfg: PretrainConfig, device=None, plain_kernels: bool = False):
+    """Live RAFT for the train step (the JAX driver's `_make_raft_fn`):
+    returns (raft_fn, lazy_up), raft_fn(frames [B, n, H, W, 3] uint8) ->
+    (flows_fwd, flows_bwd) [B, n-1, h, w, 2].
+
+    With --flow_up, RAFT-small's full-resolution output is exactly
+    `upflow8(flow_low)` (no convex head), which is what the lazy flow_up
+    path evaluates at the loss's points: the small model therefore gives
+    its coarse stack and the step takes the lazy path (`lazy_up`). RAFT-basic's
+    convex upsampling needs its own full-resolution output; the step then
+    composes those fields as they are and must not upsample them again.
+    float32 only: K2's grid entry reads float32, and a bfloat16 RAFT is
+    ROADMAP item 9."""
+    from ..models.raft import load_raft, raft_batch_flows
+
+    model = load_raft(cfg.flow.flow_model, small=cfg.flow.small).to(resolve_device(device))
+    micro = live_flow_micro_batch(cfg.flow.flow_bs)
+    lazy_up = cfg.flow.flow_up and cfg.flow.flow_up_lazy and cfg.flow.small
+
+    def raft_fn(frames):
+        return raft_batch_flows(model, frames, iters=cfg.flow.raft_iters,
+                                up=cfg.flow.flow_up and not lazy_up, micro_batch=micro,
+                                plain=plain_kernels)
+    return raft_fn, lazy_up
+
+
 def build_trainer(cfg: PretrainConfig, device=None, steps_per_epoch: int = 1,
                   model: Optional[PixPro] = None,
                   plain_kernels: bool = False) -> Trainer:
     """Model (or the one given, e.g. with carried-over weights), optimizer,
     state and both step variants. `steps_per_epoch` sets the LR and EMA
-    schedules' length, as the loader's length does in the JAX driver."""
+    schedules' length, as the loader's length does in the JAX driver. A
+    flow config without flow files gets live RAFT (`make_raft_fn`)."""
     if model is None:
         model = build_model(cfg, device)
         copy_online = True
@@ -116,15 +154,21 @@ def build_trainer(cfg: PretrainConfig, device=None, steps_per_epoch: int = 1,
     state = create_train_state(
         model, tx, ema_k0=steps_per_epoch * (cfg.optim.start_epoch - 1),
         copy_online_to_momentum=copy_online)
+    raft_fn, raft_lazy_up = None, False
+    if cfg.flow.use_flow and not cfg.flow.use_flow_file:
+        raft_fn, raft_lazy_up = make_raft_fn(cfg, device, plain_kernels)
     kw = dict(lr_schedule=lr_schedule,
               ema_total_steps=max(steps_per_epoch * cfg.optim.epochs, 1),
               ema_base_momentum=cfg.model.pixpro_momentum,
-              use_flow=cfg.flow.use_flow, flow_up=cfg.flow.flow_up,
+              use_flow=cfg.flow.use_flow,
+              # live RAFT-basic gives full-resolution flows under --flow_up
+              flow_up=cfg.flow.flow_up and (raft_fn is None or raft_lazy_up),
               flow_up_lazy=cfg.flow.flow_up_lazy,
               flow_cat_norm=cfg.flow.flow_cat_norm,
               use_flow_frames=multi_span(cfg),
               alpha1=cfg.flow.alpha1, alpha2=cfg.flow.alpha2,
-              device_aug=cfg.data.device_aug, plain_kernels=plain_kernels)
+              device_aug=cfg.data.device_aug, plain_kernels=plain_kernels,
+              raft_fn=raft_fn)
     return Trainer(state, make_train_step(tx, **kw),
                    make_train_step(tx, flow_telemetry=False, **kw),
                    max(cfg.runtime.print_freq, 1))
@@ -206,7 +250,10 @@ def synthetic_batch(cfg: PretrainConfig, seed: int,
     `coords1`/`coords2` [B, F, 10] (F = n_frames - 1; every crop within a
     tenth of the frame of one window per sample) and `n_frames_eff` [B]
     (every video whole). With `data.device_aug`, BYOL photometric parameters
-    `aug1`/`aug2` [B, P], or `augs1`/`augs2` [B, F, P]."""
+    `aug1`/`aug2` [B, P], or `augs1`/`augs2` [B, F, P]. Live-RAFT configs
+    (flows without flow files) get `frames` [B, n_frames, *orig_hw, 3]
+    uint8 in place of the flows: a drifting colour grating a sample
+    (`data/synthetic.py`), moved by a whole number of pixels a frame."""
     rng = np.random.default_rng(seed)
     b, s = cfg.data.batch_size, cfg.data.image_size
     h_img, w_img = orig_hw
@@ -236,7 +283,17 @@ def synthetic_batch(cfg: PretrainConfig, seed: int,
         if cfg.data.device_aug:
             batch["aug1"] = _photometric_params(rng, (b,), 1)
             batch["aug2"] = _photometric_params(rng, (b,), 2)
-    if cfg.flow.use_flow:
+    if cfg.flow.use_flow and not cfg.flow.use_flow_file:
+        from ..data.synthetic import grating_frame
+        n = cfg.data.n_frames
+        frames = np.empty((b, n, h_img, w_img, 3), np.uint8)
+        shifts = rng.integers(-3, 4, (b, 2))
+        for i in range(b):
+            base = grating_frame(seed * 100003 + i, 0, (h_img, w_img))
+            for f in range(n):
+                frames[i, f] = np.roll(base, tuple(f * shifts[i]), axis=(0, 1))
+        batch["frames"] = frames
+    elif cfg.flow.use_flow:
         k, fh, fw = cfg.data.n_frames - 1, h_img // 8, w_img // 8
         amp = np.float32(fw / 160)
         ys = np.linspace(-1, 1, fh, dtype=np.float32)[None, :, None]
@@ -262,8 +319,10 @@ def check_ported(cfg: PretrainConfig) -> None:
     its place."""
     d, f, r = cfg.data, cfg.flow, cfg.runtime
     missing = [
-        (f.use_flow and not f.use_flow_file,
-         "--use_flow without --use_flow_file, live RAFT (item 6)"),
+        (f.use_flow and not f.use_flow_file and f.raft_dtype != "float32",
+         f"--raft_dtype {f.raft_dtype}, a bfloat16 live RAFT (item 9)"),
+        (f.use_flow and not f.use_flow_file and f.raft_corr_dtype == "bfloat16",
+         "--raft_corr_dtype bfloat16, a bfloat16 correlation pyramid (item 9)"),
         (r.checkpoint_backend == "orbax", "--checkpoint-backend orbax (item 4)"),
         (d.loader_backend == "grain", "--loader-backend grain (item 4)"),
         (r.mesh_shape is not None and r.mesh_shape > 1,

@@ -3,7 +3,9 @@
 Order within a step, as in the JAX package and the reference:
 
     EMA of the momentum branch with the pre-step online weights ->
-    flows: the lazy flow_up (`LazyFlowUp`, evaluated at the loss's points;
+    flows, from the batch or from live RAFT on its frames (`raft_fn`, the
+    correlation lookup through K2's grid-sample entry on the card) ->
+    the lazy flow_up (`LazyFlowUp`, evaluated at the loss's points;
     + strided mask telemetry on logged steps) or the materialising
     composition and cycle masks (`ops/flow.py:compose_and_mask`, K2's
     grid-sample entry on the card) ->
@@ -17,7 +19,9 @@ Order within a step, as in the JAX package and the reference:
 The step runs eagerly and updates the state's model and optimizer state in
 place. `plain_kernels=True` routes every kernel call site (pair sums and
 their backward, the lazy flow evaluation and its telemetry, the
-materialising composition's reads) to the kernels' plain PyTorch versions;
+materialising composition's reads; live RAFT's lookup through the
+`raft_fn` that `train/driver.py` builds with the same switch) to the kernels' plain
+PyTorch versions;
 it exists for comparison runs on the card (`chip_smoke.py`), since on the
 CPU the wrappers take the plain versions by themselves."""
 
@@ -84,21 +88,26 @@ def make_train_step(
     flow_telemetry: bool = True,
     device_aug: bool = False,
     plain_kernels: bool = False,
+    raft_fn: Optional[Callable] = None,
 ):
     """Build `step_fn(state, batch) -> (state, metrics)`.
 
     batch (tensors on the model's device):
         im1, im2               [B, H, W, 3] uint8 (or normalized float32)
         coord1, coord2         [B, 10]
-        flows_fwd, flows_bwd   [B, K, h, w, 2] (use_flow)
+        flows_fwd, flows_bwd   [B, K, h, w, 2] (use_flow from files)
+        frames                 [B, n, H, W, 3] uint8 (use_flow with `raft_fn`)
         aug1, aug2             [B, P] photometric parameters (device_aug)
       multi-span (use_flow_frames), in place of the two crops:
         ims1, ims2             [B, F, H, W, 3], F = K
         coords1, coords2       [B, F, 10]
         n_frames_eff           [B] real frame counts
         augs1, augs2           [B, F, P] (device_aug)
-    The lazy flow_up path runs when `flow_up and flow_up_lazy`; otherwise
-    the flows are composed and masked as whole fields. metrics: 0-dim
+    With `raft_fn` (live RAFT, `train/driver.py:make_raft_fn`) the flows
+    are `raft_fn(batch["frames"])`, computed on the device each step, in
+    place of the batch's flow keys. The lazy flow_up path runs when
+    `flow_up and flow_up_lazy`; otherwise the flows are composed and masked
+    as whole fields. metrics: 0-dim
     tensors (reading them waits for the device) and floats."""
     if use_flow_frames and not use_flow:
         raise ValueError("use_flow_frames requires use_flow")
@@ -120,8 +129,11 @@ def make_train_step(
         flow_fwd = flow_bwd = mask_fwd = mask_bwd = None
         mask_metrics = None
         if use_flow:
-            flows_fwd = batch["flows_fwd"].to(torch.float32)
-            flows_bwd = batch["flows_bwd"].to(torch.float32)
+            if raft_fn is not None:
+                flows_fwd, flows_bwd = raft_fn(batch["frames"])
+            else:
+                flows_fwd = batch["flows_fwd"].to(torch.float32)
+                flows_bwd = batch["flows_bwd"].to(torch.float32)
             if lazy_path:
                 fwd = flows_fwd.transpose(0, 1).contiguous()  # [K, B, h, w, 2]
                 bwd = flows_bwd.transpose(0, 1).contiguous()
@@ -161,7 +173,7 @@ def make_train_step(
             loss, stats = model.multi_span_loss(
                 images(batch, "ims1", "augs1"), images(batch, "ims2", "augs2"),
                 batch["coords1"], batch["coords2"], flow_fwd, flow_bwd,
-                mask_fwd, mask_bwd, span_windows(batch["flows_fwd"].shape[1]),
+                mask_fwd, mask_bwd, span_windows(flows_fwd.shape[1]),
                 batch["n_frames_eff"], plain=plain_kernels)
         else:
             loss, stats = model(images(batch, "im1", "aug1"), images(batch, "im2", "aug2"),

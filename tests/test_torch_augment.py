@@ -27,6 +27,10 @@ from pixflow_tpu_torch.train import (create_train_state, frozen_momentum_branch_
                                      lars_sgd, make_train_step, synthetic_batch,
                                      warmup_cosine)
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 # 0..255 values after two affine segments, a hue rotation and two blur
 # products: float32 sums in another order (the crop mean, the 3x3 and band
 # products) and the hue's divisions differ in the last bits; 2e-3 is

@@ -17,6 +17,10 @@ from pixflow_tpu_torch.utils import (latest_checkpoint, load_checkpoint, publish
                                      save_checkpoint)
 from pixflow_tpu_torch.utils.checkpoint import load_published, select_branch
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 
 @pytest.fixture(autouse=True)
 def _remove_tmp_path(request):

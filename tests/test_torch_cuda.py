@@ -457,3 +457,55 @@ def test_materializing_step_runs_through_k2(dev, flow_up, use_flow_frames, reads
     assert all(v == 0 for v in lp.values())
     assert abs(mk["loss"] - mp["loss"]) <= 1e-4 * abs(mp["loss"])
     assert 0.0 <= mk["mask_ratio_fwd"] <= 0.5
+
+
+# --- RAFT: the correlation lookup through K2's grid-sample entry ---------------
+
+@pytest.mark.parametrize("split", [False, True], ids=["unsplit", "split"])
+def test_raft_lookup_through_the_kernel_equals_the_gather(dev, split, monkeypatch):
+    """RAFT-small's lookup (radius 3) at 64 x 96 frames, batch 2, through
+    the grid entry against `plain=True`: equal to the bit; with the level's
+    leading axis forced into views of 50 rows, one launch a view."""
+    from pixflow_tpu_torch.models.raft import build_corr_pyramid, lookup_corr
+    from pixflow_tpu_torch.models.raft import corr as raft_corr
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    f1, f2 = (torch.randn(2, 8, 12, 64, device=dev, generator=g) for _ in range(2))
+    pyr = build_corr_pyramid(f1, f2)
+    coords = resample.coords_grid(8, 12, device=dev)[None] \
+        + 3 * torch.randn(2, 8, 12, 2, device=dev, generator=g)
+    if split:
+        monkeypatch.setattr(raft_corr, "MAX_VIEW_ELEMENTS", 50 * 98 + 1)
+    before = grid_sample.launches
+    got = lookup_corr(pyr, coords, 3)
+    launched = grid_sample.launches - before
+    want = lookup_corr(pyr, coords, 3, plain=True)
+    torch.cuda.synchronize()
+    assert grid_sample.launches - before == launched  # the plain route launches nothing
+    assert launched == (4 * math.ceil(192 / 50) if split else 4)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("small", [True, False], ids=["small", "basic"])
+def test_raft_through_the_kernel_equals_the_plain_route(dev, small):
+    """RAFT at 64 x 96, batch 2, 3 iterations, seeded random weights, TF32
+    and cuDNN's nondeterministic algorithms off: 4 grid-entry launches an
+    iteration, none on the plain route; the flows equal to the bit."""
+    from pixflow_tpu_torch.models.raft import seeded_raft
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    model = seeded_raft(small, seed=7).to(dev)
+    g = torch.Generator(device=dev).manual_seed(8)
+    frames = torch.randint(0, 256, (2, 2, 64, 96, 3), device=dev, generator=g,
+                           dtype=torch.uint8)
+    with torch.no_grad():
+        before = grid_sample.launches
+        got = model(frames[:, 0], frames[:, 1], iters=3)
+        launched = grid_sample.launches - before
+        want = model(frames[:, 0], frames[:, 1], iters=3, plain=True)
+    torch.cuda.synchronize()
+    torch.backends.cudnn.deterministic = False
+    assert launched == 4 * 3 and grid_sample.launches - before == launched
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)

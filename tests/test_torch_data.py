@@ -28,6 +28,10 @@ from pixflow_tpu_torch.data import flowpack, native
 from pixflow_tpu_torch.data.datasets import frame_stats, load_flow_file
 from pixflow_tpu_torch.data.synthetic import write_video_corpus
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 # 8 six-frame videos and one of 3 frames, whose flow stack pads to K = 5
 FRAMES = [6] * 8 + [3]
 AUGS = ["NULL", "InstDisc", "MoCov2", "SimCLR", "BYOL", "RandAug", "val"]

@@ -43,6 +43,10 @@ from pixflow_tpu_torch.data.synthetic import write_video_corpus
 from pixflow_tpu_torch.models import flax_to_torch
 from pixflow_tpu_torch.train import build_model, train
 
+from torch_threads import cap_torch_threads, subprocess_env
+
+cap_torch_threads()
+
 ROOT = Path(__file__).resolve().parents[1]
 RECIPE = "pretrain_bdd100k_2000ep_nframe6"
 
@@ -206,7 +210,7 @@ def _cli_args(corpus, out_dir, batch=2):
 
 
 def _run_cli(args, **kw):
-    env = dict(os.environ, PYTHONPATH=str(ROOT))
+    env = subprocess_env(PYTHONPATH=str(ROOT))  # torch's threads capped
     return subprocess.run([sys.executable, "-m", "pixflow_tpu_torch.main_pretrain", *args],
                           cwd=ROOT, env=env, capture_output=True, text=True, **kw)
 
@@ -262,7 +266,7 @@ def test_cli_config_matches_jax_cli(argv, monkeypatch):
 
 
 UNPORTED = {
-    "live-raft": ["--recipe", "smoke_cpu", "--use_flow", "--flow_up"],
+    "live-raft": ["--recipe", "smoke_cpu", "--use_flow", "--flow_up", "--raft_dtype", "bfloat16"],
     "checkpoint-orbax": ["--checkpoint-backend", "orbax"],
     "loader-grain": ["--loader-backend", "grain"],
     "wandb": ["--wandb"],

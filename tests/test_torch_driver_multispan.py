@@ -16,6 +16,10 @@ from pixflow_tpu_torch import main_pretrain
 from test_torch_driver import (RECIPE, UNPORTED, _cli_args, _records,  # noqa: F401
                                _remove_tmp_path, _run_cli, corpus)
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 
 def test_cli_trains_multi_span_on_the_cpu(corpus, tmp_path):
     """Multi-span (three-frame windows: three spans), the photometric
@@ -67,7 +71,7 @@ def test_item_3_flags_run(flags):
 
 
 @pytest.mark.parametrize("setting,item", [
-    ("live-raft", "item 6"), ("checkpoint-orbax", "item 4"), ("loader-grain", "item 4"),
+    ("live-raft", "item 9"), ("checkpoint-orbax", "item 4"), ("loader-grain", "item 4"),
     ("mesh-shape", "item 4"), ("debug", "item 7")])
 def test_check_ported_refuses_the_items_still_to_port(setting, item):
     from pixflow_tpu_torch.train.driver import check_ported

@@ -25,6 +25,10 @@ from pixflow_tpu_torch.ops import flow as tflow
 from pixflow_tpu_torch.ops import resample as tres
 from pixflow_tpu_torch.ops.kernels import grid_sample as k2_grid_sample
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 H, W = 6, 9          # coarse field -> fine 48 x 72 (tests/test_flow_points.py)
 B = 2
 A1, A2 = 0.01, 0.5

@@ -20,6 +20,10 @@ from pixflow_tpu_torch.ops.kernels import (cycle_mask_points, cycle_mask_points_
                                            flow_up_points, flow_up_points_plain)
 from pixflow_tpu_torch.ops.loss import bin_centers, fused_pair_geometry
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 T = torch.tensor  # copies: JAX hands out read-only buffers
 J = jnp.asarray
 

@@ -6,6 +6,10 @@ from pathlib import Path
 
 import pytest
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 ROOT = Path(__file__).resolve().parents[1]
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "pixflow_tpu")
 FILES = sorted((ROOT / "pixflow_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]

@@ -26,6 +26,10 @@ from pixflow_tpu_torch.ops.kernels import (pair_sums, pair_sums_plain, point_sam
                                            point_sample_plain)
 from pixflow_tpu_torch.ops.loss import pixpro_pair_loss_fused
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 T = torch.tensor  # copies: JAX hands out read-only buffers
 
 

@@ -24,6 +24,10 @@ from pixflow_tpu.ops.flow_points import LazyFlowUp as JaxLazy
 from pixflow_tpu_torch.models import MLP2d, PixPro, ViewBatchNorm, flax_to_torch, make_resnet
 from pixflow_tpu_torch.ops.flow_points import LazyFlowUp
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 T = torch.tensor  # copies: JAX hands out read-only buffers
 
 

@@ -35,6 +35,10 @@ from pixflow_tpu_torch.train import (create_train_state, frozen_momentum_branch_
                                      lars_sgd, make_train_step, synthetic_batch,
                                      warmup_cosine)
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 HW, B, N_FRAMES = 32, 4, 4
 N_EFF = np.array([4, 4, 3, 2], np.int32)  # ragged videos (tests/test_flow_frames.py)
 MODEL_KW = dict(arch="resnet18", pixpro_p=2.0, pixpro_transform_layer=1,

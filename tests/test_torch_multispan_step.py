@@ -19,17 +19,28 @@ from pixflow_tpu_torch.train import (create_train_state, frozen_momentum_branch_
 
 from test_torch_multispan import MODEL_KW, STEP_KW, _batch, _jax_state, _rel
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 
 @pytest.fixture(scope="module")
 def batch():
     return _batch()
 
 
-@pytest.fixture(scope="module", params=["lazy", "materializing"])
-def one_step(request, batch):
-    lazy = request.param == "lazy"
+@pytest.fixture(scope="module")
+def jax_init():
+    """The JAX model and its initial state, built once for both paths (the
+    steps do not donate their inputs)."""
     jm = JaxPixPro(**MODEL_KW)
-    state, j_tx, j_lr = _jax_state(jm)
+    return (jm, *_jax_state(jm))
+
+
+@pytest.fixture(scope="module", params=["lazy", "materializing"])
+def one_step(request, batch, jax_init):
+    lazy = request.param == "lazy"
+    jm, state, j_tx, j_lr = jax_init
     j_step = jax_make_step(jm, j_tx, lr_schedule=j_lr, mesh=None, donate=False,
                            flow_up_lazy=lazy, **STEP_KW)
     j_new, j_metrics = j_step(state, {k: jnp.asarray(v) for k, v in batch.items()})

@@ -18,6 +18,10 @@ from pixflow_tpu_torch.ops import flow_points as tfp
 from pixflow_tpu_torch.ops import loss as tloss
 from pixflow_tpu_torch.ops import resample as tres
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 T = torch.tensor  # copies: JAX hands out read-only buffers
 J = jnp.asarray
 

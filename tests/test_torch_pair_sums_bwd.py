@@ -19,6 +19,10 @@ from pixflow_tpu.ops.pallas.pair_loss import fused_pair_sums as jax_fused_pair_s
 from pixflow_tpu_torch.ops.kernels import (fused_pair_sums, pair_sums_backward,
                                            pair_sums_backward_plain)
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 # the module, which the package's function of the same name shadows
 pair_sums_module = importlib.import_module("pixflow_tpu_torch.ops.kernels.pair_sums")
 T = torch.tensor  # copies: JAX hands out read-only buffers

@@ -22,6 +22,10 @@ from pixflow_tpu_torch.train import (create_train_state, frozen_momentum_branch_
                                      lars_sgd, make_train_step, synthetic_batch,
                                      warmup_cosine)
 
+from torch_threads import cap_torch_threads
+
+cap_torch_threads()
+
 MODEL_KW = dict(arch="resnet18", pixpro_p=2.0, pixpro_transform_layer=1,
                 pixpro_pos_ratio=0.7, proj_inner_dim=64, proj_out_dim=32,
                 fuse_views=True)
