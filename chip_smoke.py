@@ -24,8 +24,14 @@ at RAFT-small's correlation lookup shapes (720 x 1280 frames, micro-batch
 4, every pyramid level), `raft_parity_f32` RAFT small and basic through
 the kernel against the plain route, `raft` times their forwards, and
 `live_raft` trains the recipe at batch 64 with flows from RAFT-small in
-the step (no flow files). Last, the `cli` phase trains the recipe
-from files: it writes a synthetic BDD100k-shaped corpus (720 x 1280 JPEG
+the step (no flow files). RAFT training follows:
+`kernel_grid_sample_backward` holds the backward kernel of K2's grid entry
+against its plain version at RAFT-basic's chairs-stage lookup (368 x 496,
+batch 8) and at a general grid, `raft_train_parity_f32` one RAFT small and
+basic train step through the kernels against the plain route, and
+`raft_train` trains RAFT-basic's chairs stage at full width from a
+synthetic FlyingChairs-layout corpus. Then the `cli` phase trains the
+recipe from files: it writes a synthetic BDD100k-shaped corpus (720 x 1280 JPEG
 frames, six a video, and .pth flows), times the port's loader alone (also
 with the photometric ops left to the card), then runs
 `python -m pixflow_tpu_torch.main_pretrain` for two epochs and again with
@@ -33,7 +39,11 @@ with the photometric ops left to the card), then runs
 and `--mask-ratio-exact`, runs `python -m pixflow_tpu_torch.precompute_flows`
 over 8 videos and one epoch of live RAFT-small through the CLI, and checks
 the logged metrics, the checkpoints, the kernel launches and the
-step-exact resume. Each path's launches are
+step-exact resume; last, `cli_eval` runs `main_raft` (a save,
+`--resume auto`, `--validate chairs`, its weights through
+`precompute_flows`), `main_linear` at ResNet-50, 224 px, batch 256 from the
+`cli` run's checkpoint (2 epochs, then `-e --auto-resume`) and
+`convert_pretrain_to_d2`. Each path's launches are
 counted from 0 just before it runs and read just after.
 Each phase prints one JSON line; then come the `kernels` line, the card's
 `nvidia-smi` name and power limit, and last `{"ok": true, "device": ...}`.
@@ -44,6 +54,7 @@ import copy
 import json
 import math
 import os
+import shutil
 import signal
 import subprocess
 import sys
@@ -1064,7 +1075,238 @@ def live_raft_run(dev, raft_path):
     return launches
 
 
-# --- phase 8: the CLI, training from files -----------------------------------
+# --- phase 8: RAFT training, the lookup's backward kernel --------------------
+
+CHAIRS_CROP = (368, 496)   # the chairs stage's crop (main_raft.py STAGE_CROPS)
+CHAIRS_FRAME = (384, 512)  # FlyingChairs' frames
+RAFT_TRAIN_BATCH = 8       # the chairs stage's batch
+
+
+def _lookup_backward_case(dev, radius, crop, batch, seed):
+    """(level grids, grad_outs, level shapes) of RAFT's lookup backward at
+    `crop` and `batch`: feature maps crop / 8, each level's (2r+1)^2 window
+    about targets a few pixels off the grid, random incoming gradients."""
+    from pixflow_tpu_torch.models.raft.corr import window_grid
+    from pixflow_tpu_torch.ops import resample
+
+    h, w = crop[0] // 8, crop[1] // 8
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    coords = resample.coords_grid(h, w, device=dev)[None] \
+        + 3.0 * torch.randn(batch, h, w, 2, device=dev, generator=gen)
+    centroid = coords.reshape(-1, 2)
+    n, win = centroid.shape[0], 2 * radius + 1
+    cases, hl, wl = [], h, w
+    for lvl in range(4):
+        grid = window_grid(centroid, radius, lvl, hl, wl)
+        go = torch.randn(n, win, win, 1, device=dev, generator=gen)
+        cases.append((f"level{lvl}", go, grid, (n, hl, wl, 1)))
+        hl, wl = max(hl // 2, 1), max(wl // 2, 1)
+    return cases
+
+
+def compare_grid_sample_backward(dev):
+    """The backward of K2's grid-sample entry (`csrc/grid_sample_bwd.cu`) at
+    RAFT-basic's lookup, chairs crop 368 x 496, batch 8 (22816 rows; levels
+    46 x 62, 23 x 31, 11 x 15, 5 x 7, 9 x 9 windows), and at a general grid
+    (points outside, on the borders, on texel centres, 9 a row on one
+    texel). Each against the plain version (`index_add_`, atomics on the
+    card): |diff| <= 2^-21 x the sum of the terms' magnitudes (another
+    summation order); two runs of the kernel equal to the bit. Timed beside
+    the plain version and `aten.grid_sampler_2d_backward` on the NCHW views
+    (grad_input only); the bound is the gradient field written once plus
+    grad_out and the grid read once."""
+    from pixflow_tpu_torch.ops.kernels import grid_sample_backward, grid_sample_backward_plain
+
+    cases = _lookup_backward_case(dev, 4, CHAIRS_CROP, RAFT_TRAIN_BATCH, seed=70)
+    gen = torch.Generator(device=dev).manual_seed(71)
+    grid = torch.rand(64, 32, 32, 2, device=dev, generator=gen) * 2.6 - 1.3
+    grid[:, 0, :, 0], grid[:, 1, :, 1], grid[:, 2] = -1.0, 1.0, 2 * 7 / 29 - 1
+    grid[:, 3, :9, 0], grid[:, 3, :9, 1] = 2 * 2.25 / 29 - 1, 2 * 1.5 / 19 - 1
+    grid[:, 4] = 5.0
+    cases.append(("general", torch.randn(64, 32, 32, 2, device=dev, generator=gen), grid,
+                  (64, 20, 30, 2)))
+    out = {}
+    for name, go, grid, shape in cases:
+        got = grid_sample_backward(go, grid, shape)
+        again = grid_sample_backward(go, grid, shape)
+        want = grid_sample_backward_plain(go, grid, shape)
+        mag = grid_sample_backward_plain(go.abs(), grid, shape)
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        rel = float((err / mag.clamp_min(1e-30)).max())
+        check(bool(torch.equal(got, again)), f"grid_sample_backward {name}: two runs differ")
+        check(bool(torch.all(err <= 2.0 ** -21 * mag)),
+              f"grid_sample_backward {name}: {rel} of the magnitude sum from the plain version")
+        n, hl, wl, c = shape
+        inp = torch.empty(n, c, hl, wl, device=dev)
+        go_nchw = go.permute(0, 3, 1, 2)  # [N, 1, 9, 9] of RAFT's: the same memory
+        lib = lambda: torch.ops.aten.grid_sampler_2d_backward(
+            go_nchw, inp, grid, 0, 0, True, [True, False])[0]
+        lib_err = float((lib().permute(0, 2, 3, 1) - want).abs().max())
+        check(lib_err <= 1e-4 * float(mag.max()),
+              f"grid_sampler_2d_backward disagrees with the plain version: {lib_err}")
+        bytes_ = got.numel() * 4 + go.numel() * 4 + grid.numel() * 4
+        out[name] = dict(
+            grad_img=list(shape), points=[n, grid.shape[1] * grid.shape[2]],
+            max_abs_err=float(err.max()), max_err_over_magnitude=rel,
+            elements_differ=int((got != want).sum()),
+            kernel_ms=cuda_ms(lambda: grid_sample_backward(go, grid, shape), iters=20),
+            plain_ms=cuda_ms(lambda: grid_sample_backward_plain(go, grid, shape), iters=3),
+            bound_ms=bytes_ / HBM_BYTES_PER_S * 1e3, bound_by="bytes",
+            library_ms=cuda_ms(lib, iters=20), library_max_abs_err=lib_err)
+        del got, again, want, mag
+    torch.cuda.empty_cache()
+    levels = [out[f"level{i}"] for i in range(4)]
+    lookup = {k: sum(lv[k] for lv in levels) for k in ("kernel_ms", "plain_ms", "bound_ms",
+                                                       "library_ms")}
+    lookup.update(max_abs_err=max(lv["max_abs_err"] for lv in levels), bound_by="bytes")
+    emit({"phase": "kernel_grid_sample_backward", "crop": list(CHAIRS_CROP),
+          "batch": RAFT_TRAIN_BATCH, "radius": 4, "tolerance": "2^-21 x magnitude sum",
+          **out, "lookup": lookup, "card": nvidia_smi()})
+    return lookup
+
+
+def _train_batch(dev, b, hw, seed):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    return {"img1": 255 * torch.rand(b, *hw, 3, device=dev, generator=g),
+            "img2": 255 * torch.rand(b, *hw, 3, device=dev, generator=g),
+            "flow": 3 * torch.randn(b, *hw, 2, device=dev, generator=g),
+            "valid": (torch.rand(b, *hw, device=dev, generator=g) > 0.1).float()}
+
+
+def raft_train_parity(dev):
+    """One train step of RAFT small and basic (seeded weights, 128 x 192,
+    batch 2, 12 iterations, TF32 off, cuDNN deterministic) through the
+    kernels (the grid entry and its backward) against the same step
+    through the plain gather and its autograd: the loss within 1e-6
+    relative, each gradient's difference within 1e-4 of its norm (plus
+    1e-8 of all gradients' norm: biases ahead of an instance norm have a
+    gradient of zero up to rounding), and the updated parameters reported
+    (Adam's first step is about lr x sign(g): where g is near zero its
+    sign is noise)."""
+    from pixflow_tpu_torch.models.raft import seeded_raft
+    from pixflow_tpu_torch.ops.kernels import grid_sample, grid_sample_backward
+    from pixflow_tpu_torch.train.raft_trainer import (make_raft_train_step,
+                                                      raft_optimizer, raft_train_state)
+
+    torch.backends.cudnn.deterministic = True
+    batch = _train_batch(dev, 2, (128, 192), seed=72)
+    out = {}
+    for small in (True, False):
+        runs = {}
+        for plain in (False, True):
+            model = seeded_raft(small, seed=73).to(dev)
+            _, tx = raft_optimizer(4e-4, 1000, 1e-4)
+            state = raft_train_state(model, tx)
+            grads = {}
+            hooks = [p.register_post_accumulate_grad_hook(
+                lambda p, n=n: grads.__setitem__(n, p.grad.detach().clone()))
+                for n, p in model.named_parameters()]
+            before = (grid_sample.launches, grid_sample_backward.launches)
+            _, m = make_raft_train_step(tx, iters=RAFT_ITERS, plain=plain)(state, batch)
+            torch.cuda.synchronize()
+            for h in hooks:
+                h.remove()
+            runs[plain] = (float(m["loss"]), grads, dict(model.named_parameters()),
+                           (grid_sample.launches - before[0],
+                            grid_sample_backward.launches - before[1]))
+        (loss_k, g_k, p_k, l_k), (loss_p, g_p, p_p, l_p) = runs[False], runs[True]
+        total = math.sqrt(sum(float(g.norm()) ** 2 for g in g_p.values()))
+        grad_rel = {n: float((g_k[n] - g_p[n]).norm()) / max(float(g_p[n].norm()), 1e-30)
+                    for n in g_p}
+        grad_ok = all(float((g_k[n] - g_p[n]).norm()) <= 1e-4 * float(g_p[n].norm())
+                      + 1e-8 * total for n in g_p)
+        big = [n for n in g_p if float(g_p[n].norm()) > 1e-6 * total]
+        param_rel = {n: float((p_k[n] - p_p[n]).detach().norm()) / float(p_p[n].detach().norm())
+                     for n in p_p}
+        name = "small" if small else "basic"
+        out[name] = {"loss_kernels": loss_k, "loss_plain": loss_p,
+                     "loss_rel_diff": abs(loss_k - loss_p) / abs(loss_p),
+                     "grad_rel_norm_diff_max": max(grad_rel[n] for n in big),
+                     "grad_rel_norm_diff_max_all": max(grad_rel.values()),
+                     "grad_tensors": len(g_p),
+                     "param_rel_norm_diff_max": max(param_rel.values()),
+                     "param_rel_norm_diff_median": float(np.median(list(param_rel.values()))),
+                     "launches_kernels": l_k, "launches_plain": l_p}
+        check(l_k == (4 * RAFT_ITERS, 4 * RAFT_ITERS) and l_p == (0, 0),
+              f"raft_train_parity {name} launches {l_k}, {l_p}")
+        check(math.isfinite(loss_k) and abs(loss_k - loss_p) <= 1e-6 * abs(loss_p),
+              f"raft_train_parity {name}: loss {loss_k} vs {loss_p}")
+        check(grad_ok and float(g_k["fnet.conv1.weight"].abs().max()) > 0,
+              f"raft_train_parity {name}: gradients {out[name]}")
+        del runs, g_k, g_p, p_k, p_p
+    torch.backends.cudnn.deterministic = False
+    torch.cuda.empty_cache()
+    emit({"phase": "raft_train_parity_f32", "crop": [128, 192], "batch": 2,
+          "iters": RAFT_ITERS, "tf32": False, **out})
+
+
+def raft_train_run(dev, chairs_root):
+    """RAFT-basic's chairs stage at full width: crop 368 x 496, batch 8, 12
+    iterations, AdamW with the one-cycle schedule, batches assembled on the
+    host from a synthetic FlyingChairs-layout corpus (augmented as
+    main_raft does), cuDNN TF32 on (PyTorch's default, a user's run).
+    2 warm-up and 6 timed steps, each between CUDA events: ms a step,
+    pairs/s, peak memory, and the lookup's launches a step (48 forward,
+    48 backward)."""
+    from pixflow_tpu_torch.data.raft_datasets import fetch_stage_dataset
+    from pixflow_tpu_torch.main_raft import sample_batch
+    from pixflow_tpu_torch.models.raft import RAFT
+    from pixflow_tpu_torch.ops.kernels import grid_sample, grid_sample_backward
+    from pixflow_tpu_torch.train import to_device
+    from pixflow_tpu_torch.train.raft_trainer import (make_raft_train_step,
+                                                      raft_optimizer, raft_train_state)
+
+    warm, timed, b = 2, 6, RAFT_TRAIN_BATCH
+    dataset = fetch_stage_dataset("chairs", {"chairs": chairs_root}, CHAIRS_CROP)
+    rng = np.random.default_rng(0)
+    t = time.perf_counter()
+    batches = [to_device(sample_batch(dataset, rng, s + 1, b, seed=0), dev)
+               for s in range(warm + timed)]
+    host_s = time.perf_counter() - t
+    torch.backends.cudnn.benchmark = True
+    torch.backends.cudnn.allow_tf32 = True
+    model = RAFT(small=False, generator=torch.Generator().manual_seed(0)).to(dev)
+    schedule, tx = raft_optimizer(4e-4, 120000, 1e-4)
+    state = raft_train_state(model, tx)
+    step = make_raft_train_step(tx, iters=RAFT_ITERS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    grid_sample.launches = grid_sample_backward.launches = 0
+    times, losses = [], []
+    for i, batch in enumerate(batches):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, m = step(state, batch)
+        end.record()
+        torch.cuda.synchronize()
+        losses.append(float(m["loss"]))
+        if i >= warm:
+            times.append(start.elapsed_time(end))
+    launches = {"grid_sample": grid_sample.launches,
+                "grid_sample_backward": grid_sample_backward.launches}
+    peak = torch.cuda.max_memory_allocated(dev)
+    torch.backends.cudnn.allow_tf32 = False  # back to this script's f32 checks
+    n = warm + timed
+    check(all(math.isfinite(x) for x in losses), f"raft_train losses {losses}")
+    check(launches == {"grid_sample": 4 * RAFT_ITERS * n,
+                       "grid_sample_backward": 4 * RAFT_ITERS * n},
+          f"raft_train launches {launches} in {n} steps")
+    step_ms = float(np.median(times))
+    del state, model, batches
+    torch.cuda.empty_cache()
+    emit({"phase": "raft_train", "model": "basic", "crop": list(CHAIRS_CROP), "batch": b,
+          "iters": RAFT_ITERS, "cudnn_tf32": True, "weights": "seeded random",
+          "corpus": "synthetic FlyingChairs layout", "host_batch_s": host_s / n,
+          "step_ms": step_ms, "step_ms_all": times, "pairs_per_s": b / (step_ms / 1e3),
+          "peak_mem_gb": peak / 1e9, "losses": losses, "launches": launches,
+          "launches_per_step": {k: v / n for k, v in launches.items()},
+          "lr_first_last": [schedule(0), schedule(n - 1)], "card": nvidia_smi()})
+    return launches, step_ms
+
+
+# --- phase 9: the CLI, training from files -----------------------------------
 
 def run_cli(args, timeout, module="pixflow_tpu_torch.main_pretrain"):
     """`python -m MODULE ARGS` in its own process group, which is killed
@@ -1130,7 +1372,7 @@ def sample_costs(dataset, n=32) -> dict:
     return {k: 1e3 * v / len(videos) for k, v in parts.items()}
 
 
-def cli_run(recipe_step_ms, raft_path, extra_args=()):
+def cli_run(recipe_step_ms, raft_path, extra_args=(), keep_checkpoint=None):
     from pixflow_tpu_torch.configs import get_recipe
     from pixflow_tpu_torch.data import build_pretrain_loader
     from pixflow_tpu_torch.data.synthetic import write_video_corpus
@@ -1206,6 +1448,8 @@ def cli_run(recipe_step_ms, raft_path, extra_args=()):
               f"first resumed step: {first_resumed}, schedule lr {lr(2 * steps)}")
         check(counts == expect, f"kernel launches {counts}, expected {expect}")
 
+        if keep_checkpoint:  # the linear probe's pretrained backbone (cli_eval)
+            shutil.copyfile(os.path.join(out_dir, "current.pth"), keep_checkpoint)
         epoch2 = [r["time"] for r in recs if r["epoch"] == 2]
         step_ms = 1e3 * float(np.median(epoch2))
         multispan = cli_multispan(data_dir, os.path.join(tmp, "out_multispan"), workers)
@@ -1358,6 +1602,124 @@ def cli_live_raft(data_dir, tmp, raft_path, workers):
             "launches": counts, "losses": [r["loss"] for r in recs]}
 
 
+LINEAR_CLASSES = 4
+LINEAR_BATCH = 256  # main_linear's default total batch
+
+
+def _d2_keys(layers=(3, 4, 6, 3)):
+    """detectron2's ResNet-50 names, from its layout: the stem, conv1-3 of
+    every bottleneck block, the first block's shortcut of every stage,
+    each conv with its norm's four entries."""
+    norm = ("weight", "bias", "running_mean", "running_var")
+    convs = ["stem.conv1"]
+    for s, n in enumerate(layers):
+        for b in range(n):
+            convs += [f"res{s + 2}.{b}.conv{i}" for i in (1, 2, 3)]
+            if b == 0:
+                convs.append(f"res{s + 2}.0.shortcut")
+    return {f"{c}.weight" for c in convs} | {f"{c}.norm.{k}" for c in convs for k in norm}
+
+
+def cli_eval(dev, chairs_root, pretrain_ckpt):
+    """The training-and-evaluation CLIs on the card. `main_raft` (RAFT-basic,
+    chairs stage, batch 4) for 2 steps with a save and `--validate chairs`,
+    then `--resume auto` to step 4; its saved weights through
+    `precompute_flows --flow-model` on one synthetic video. `main_linear` at
+    ResNet-50, 224 px, batch 256 on a synthetic ImageFolder of 4 classes
+    (2 steps an epoch) from the `cli` phase's pretraining checkpoint: 2
+    epochs, then `-e --auto-resume`. `convert_pretrain_to_d2` on the same
+    checkpoint: the full d2 key set of a ResNet-50."""
+    import pickle
+
+    from pixflow_tpu_torch.data.synthetic import write_image_folder, write_video_corpus
+
+    with tempfile.TemporaryDirectory(prefix="pixflow_eval_") as tmp:
+        out = os.path.join(tmp, "raft")
+        common = ["--stage", "chairs", "--chairs-root", chairs_root, "--batch-size", "4",
+                  "--print-freq", "1", "--save-freq", "2", "--output-dir", out,
+                  "--validate", "chairs", "--num-workers", "4"]
+        t = time.perf_counter()
+        first = run_cli([*common, "--num-steps", "2"], timeout=300,
+                        module="pixflow_tpu_torch.main_raft")
+        second = run_cli([*common, "--num-steps", "4", "--resume", "auto"], timeout=300,
+                         module="pixflow_tpu_torch.main_raft")
+        raft_s = time.perf_counter() - t
+        check("resumed full train state" in second and "at step 2" in second,
+              f"main_raft resume:\n{second[-2000:]}")
+        with open(os.path.join(out, "raft_metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        with open(os.path.join(out, "raft_val.jsonl")) as f:
+            val = [json.loads(line) for line in f]
+        check([r["step"] for r in recs] == [1, 2, 3, 4]
+              and all(math.isfinite(r["loss"]) for r in recs), f"main_raft metrics {recs}")
+        check([v["step"] for v in val] == [2, 4] and all(math.isfinite(v["epe"]) for v in val),
+              f"main_raft validation {val}")
+        launches = [json.loads(o.strip().splitlines()[-1].split("kernel launches: ", 1)[1])
+                    for o in (first, second)]
+        # 2 steps a run: 48 reads and 48 backward reads a step; each
+        # validation reads 4 levels x 24 iterations a pair
+        n_val = int(val[0]["n_samples"])
+        check(launches == [{"grid_sample": 2 * 48 + 96 * n_val, "grid_sample_backward": 96}] * 2,
+              f"main_raft launches {launches}")
+        video_root = os.path.join(tmp, "bdd")
+        write_video_corpus(video_root, 3, frame_hw=(256, 320), seed=1, n_videos=1)
+        pre = run_cli(["--data-dir", os.path.join(video_root, "images", "train"),
+                       "--out-dir", os.path.join(tmp, "flows"), "--format", "pth",
+                       "--flow-model", os.path.join(out, "raft_chairs_4.pth")],
+                      timeout=300, module="pixflow_tpu_torch.precompute_flows")
+        done = json.loads(pre.strip().splitlines()[-1])
+        check(done["videos"] == 1 and done["pairs"] == 4, f"precompute_flows: {done}")
+        flows = torch.load(os.path.join(tmp, "flows", "forward", "video000.pth"),
+                           weights_only=True)
+        check(tuple(flows.shape) == (2, 2, 32, 40) and bool(torch.isfinite(flows).all()),
+              f"precompute_flows with the trained RAFT: {tuple(flows.shape)}")
+
+        data = os.path.join(tmp, "imagefolder")
+        write_image_folder(data, LINEAR_CLASSES, 2 * LINEAR_BATCH // LINEAR_CLASSES,
+                           LINEAR_BATCH // LINEAR_CLASSES, seed=2)
+        lin_out = os.path.join(tmp, "linear")
+        lin = ["--data-dir", data, "--pretrained-model", pretrain_ckpt, "--output-dir", lin_out,
+               "--num-classes", str(LINEAR_CLASSES), "--epochs", "2", "--save-freq", "1",
+               "--print-freq", "1", "--num-workers", str(max(len(os.sched_getaffinity(0)) - 2, 1)),
+               "--learning-rate", "1.0"]
+        t = time.perf_counter()
+        run_cli(lin, timeout=400, module="pixflow_tpu_torch.main_linear")
+        run_cli([*lin, "-e", "--auto-resume"], timeout=300, module="pixflow_tpu_torch.main_linear")
+        linear_s = time.perf_counter() - t
+        with open(os.path.join(lin_out, "linear_val.jsonl")) as f:
+            lin_recs = [json.loads(line) for line in f]
+        check([r["epoch"] for r in lin_recs] == [1, 2, 2] and lin_recs[2].get("eval_only"),
+              f"main_linear records {lin_recs}")
+        for r in lin_recs:
+            check(math.isfinite(r["loss"]) and 0.0 <= r["acc1"] <= r["acc5"] <= 100.0,
+                  f"main_linear metrics {r}")
+        # -e evaluates the resumed epoch-2 probe: its metrics again, up to
+        # another process's cuDNN algorithms (one image's decision at most)
+        check(lin_recs[0]["steps"] == 2
+              and abs(lin_recs[2]["acc1"] - lin_recs[1]["acc1"]) <= 100.0 / LINEAR_BATCH + 1e-6
+              and abs(lin_recs[2]["loss"] - lin_recs[1]["loss"]) <= 1e-3 * abs(lin_recs[1]["loss"]),
+              f"main_linear: -e after --auto-resume {lin_recs}")
+
+        d2_path = os.path.join(tmp, "r50.pkl")
+        run_cli([pretrain_ckpt, d2_path], timeout=120,
+                module="pixflow_tpu_torch.convert_pretrain_to_d2")
+        with open(d2_path, "rb") as f:
+            d2 = pickle.load(f)
+        want = _d2_keys()
+        check(set(d2["model"]) == want and d2["matching_heuristics"],
+              f"d2 pickle: {len(d2['model'])} keys, {len(want)} expected")
+        check(all(np.isfinite(v).all() for v in d2["model"].values()), "d2 pickle: not finite")
+    emit({"phase": "cli_eval",
+          "main_raft": {"model": "basic", "crop": list(CHAIRS_CROP), "batch": 4,
+                        "steps": [r["step"] for r in recs], "losses": [r["loss"] for r in recs],
+                        "sec_per_step": [r["sec_per_step"] for r in recs],
+                        "validation": val, "launches": launches, "run_s": raft_s,
+                        "precompute_flows": done},
+          "main_linear": {"arch": "resnet50", "image_size": 224, "batch": LINEAR_BATCH,
+                          "classes": LINEAR_CLASSES, "epochs": lin_recs, "run_s": linear_s},
+          "d2_keys": len(d2["model"]), "card": nvidia_smi()})
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this run needs an NVIDIA GPU",
@@ -1394,14 +1756,22 @@ def main():
     lookup = compare_raft_lookup(dev)
     raft_parity(dev)
     raft_run(dev)
+    backward = compare_grid_sample_backward(dev)
+    raft_train_parity(dev)
+    from pixflow_tpu_torch.data.synthetic import write_chairs_corpus
     from pixflow_tpu_torch.models.raft import seeded_raft
     with tempfile.TemporaryDirectory(prefix="pixflow_raft_") as raft_dir:
+        chairs_root = os.path.join(raft_dir, "chairs")
+        write_chairs_corpus(chairs_root, 40, 4, frame_hw=CHAIRS_FRAME, seed=0)
+        train_launches, _ = raft_train_run(dev, chairs_root)
         raft_path = os.path.join(raft_dir, "raft-small.pth")  # 'small' in the name
         torch.save({f"module.{k}": v for k, v in seeded_raft(True, seed=66).state_dict().items()},
                    raft_path)
         live_launches = live_raft_run(dev, raft_path)
         torch.cuda.empty_cache()  # the CLI's process needs the card's memory
-        cli_run(recipe_step_ms, raft_path)
+        pretrain_ckpt = os.path.join(raft_dir, "pretrain.pth")
+        cli_run(recipe_step_ms, raft_path, keep_checkpoint=pretrain_ckpt)
+        cli_eval(dev, chairs_root, pretrain_ckpt)
 
     def entry(name, source, replaces, launches, m):
         return {"name": name, "route": "cuda", "source": f"pixflow_tpu_torch/csrc/{source}.cu",
@@ -1417,7 +1787,10 @@ def main():
     # grid-sample entry at the full-res read of the materialising path, and
     # again at RAFT's lookup (one lookup, four levels, at 720p micro-batch 4:
     # ms, bound, plain and F.grid_sample summed over its four launches;
-    # launches from the live-RAFT recipe run)
+    # launches from the live-RAFT recipe run); and that entry's backward
+    # (XLA's autodiff of lookup_corr_mxu in the JAX package) at RAFT-basic's
+    # chairs-stage lookup, summed over its four levels, with raft_train's
+    # launches)
     kernels = [entry("pair_sums", "pair_sums", "pixflow_tpu/ops/pallas/pair_loss.py:36",
                      launches["pair_sums"], k1["bfloat16"]),
                entry("pair_sums_backward", "pair_sums_bwd",
@@ -1430,7 +1803,10 @@ def main():
                entry("grid_sample", "point_sample", "pixflow_tpu/ops/pallas/warp.py:50",
                      mat_launches["grid_sample"], k2["grid_sample"]["flow_up"]),
                entry("grid_sample_raft_lookup", "point_sample",
-                     "pixflow_tpu/ops/pallas/warp.py:50", live_launches["grid_sample"], lookup)]
+                     "pixflow_tpu/ops/pallas/warp.py:50", live_launches["grid_sample"], lookup),
+               entry("grid_sample_backward", "grid_sample_bwd",
+                     "pixflow_tpu/models/raft/corr.py:85", train_launches["grid_sample_backward"],
+                     backward)]
     emit({"kernels": kernels})
     print(card, flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

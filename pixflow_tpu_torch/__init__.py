@@ -20,6 +20,6 @@ the reference's torch names (`encoder.layer2.0.downsample.0.weight`,
 `torch_pixpro_to_flax` map weights both ways.
 
 Devices. Entry points run on `cuda` unless the caller passes `device="cpu"`
-(`device.py`). The two hand-written CUDA kernels (`ops/kernels/`) launch for
+(`device.py`). The hand-written CUDA kernels (`ops/kernels/`) launch for
 CUDA tensors; a tensor on the CPU takes the kernel's plain PyTorch version.
 """

@@ -1,6 +1,6 @@
-"""Typed pretraining configuration: the port's own copy of
-`pixflow_tpu/configs/config.py` (same sections, fields and defaults, so a
-`config.json` written by either package loads in the other).
+"""Typed pretraining and linear-probe configuration: the port's own copy
+of `pixflow_tpu/configs/config.py` (same sections, fields and defaults, so
+a `config.json` written by either package loads in the other).
 
 Every field is kept so the two stay interchangeable. The port reads
 `data.*` (the loader, `train/driver.py:train`), `flow.*` for file flows
@@ -145,4 +145,44 @@ class PretrainConfig:
 
     @classmethod
     def from_json(cls, s: str) -> "PretrainConfig":
+        return cls.from_dict(json.loads(s))
+
+
+@dataclass
+class LinearConfig:
+    """Linear-probe stage (reference `main_linear.py` + option
+    stage='linear'): `pixflow_tpu/configs/config.py:LinearConfig`, same
+    fields and defaults."""
+    data: DataConfig = field(default_factory=lambda: DataConfig(
+        aug="NULL", crop=0.08, dataset="ImageNet"))
+    model: ModelConfig = field(default_factory=lambda: ModelConfig(
+        head_type="reduce"))
+    optim: OptimConfig = field(default_factory=lambda: OptimConfig(
+        optimizer="sgd", base_lr=30.0, weight_decay=0.0, warmup_epoch=0,
+        epochs=100))
+    runtime: RuntimeConfig = field(default_factory=RuntimeConfig)
+    total_batch_size: int = 256
+    num_classes: int = 1000
+    eval_only: bool = False
+
+    def to_json(self, **kw) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, default=str, **kw)
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "LinearConfig":
+        # absent keys take THIS class's defaults, the overridden section
+        # factories included (sgd, base_lr 30, aug NULL, ...), which a plain
+        # `OptimConfig(**d["optim"])` would drop for a partial dict
+        base = cls(**{k: d[k] for k in ("total_batch_size", "num_classes",
+                                        "eval_only") if k in d})
+        return dataclasses.replace(
+            base,
+            data=dataclasses.replace(base.data, **d.get("data", {})),
+            model=dataclasses.replace(base.model, **d.get("model", {})),
+            optim=dataclasses.replace(base.optim, **d.get("optim", {})),
+            runtime=dataclasses.replace(base.runtime, **d.get("runtime", {})),
+        )
+
+    @classmethod
+    def from_json(cls, s: str) -> "LinearConfig":
         return cls.from_dict(json.loads(s))

@@ -113,13 +113,6 @@ void launch(const float* field, const float* pts, float* out, int B, int H,
   }
 }
 
-// One tap of the gather: the weight times the field value where (xc, yc) lies
-// inside the field, else 0, exactly as the plain version's where().
-__device__ __forceinline__ bool tap_ok(float xc, float yc, int H, int W) {
-  return xc >= 0.0f && xc <= (float)(W - 1) && yc >= 0.0f &&
-         yc <= (float)(H - 1);
-}
-
 template <int C2>
 __global__ void grid_sample_kernel(const float* __restrict__ img,
                                    const float2* __restrict__ grid,
@@ -128,23 +121,10 @@ __global__ void grid_sample_kernel(const float* __restrict__ img,
   const int idx = blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= total) return;
   const int b = idx / N;
-  const float2 g = __ldg(grid + idx);
-  const float x = (g.x + 1.0f) * 0.5f * (float)(W - 1);
-  const float y = (g.y + 1.0f) * 0.5f * (float)(H - 1);
-  const float x0 = floorf(x), y0 = floorf(y);
-  const float x1 = x0 + 1.0f, y1 = y0 + 1.0f;
-  const float wx = x - x0, wy = y - y0;
-  const float tw[4] = {(1.0f - wy) * (1.0f - wx), (1.0f - wy) * wx,
-                       wy * (1.0f - wx), wy * wx};
-  const float tx[4] = {x0, x1, x0, x1};
-  const float ty[4] = {y0, y0, y1, y1};
+  float tw[4];
   int off[4];
   bool ok[4];
-#pragma unroll
-  for (int t = 0; t < 4; ++t) {
-    ok[t] = tap_ok(tx[t], ty[t], H, W);
-    off[t] = ok[t] ? ((int)ty[t] * W + (int)tx[t]) : 0;
-  }
+  pixflow::grid_taps(__ldg(grid + idx), H, W, tw, off, ok);
   const float* fb = img + b * H * W * C;
   if constexpr (C2) {
     const float2* f2 = reinterpret_cast<const float2*>(fb);

@@ -1,7 +1,9 @@
-// Tap logic shared by the K2 family (point_sample.cu, flow_up_points.cu): the
-// composite weights of one axis of the align-corners `up`x upsample, and the
-// two-channel read built from them. Both kernels include this header, so a
-// point's weights and sums are computed the same way wherever it is read.
+// Tap logic shared by the K2 family (point_sample.cu, flow_up_points.cu,
+// grid_sample_bwd.cu): the composite weights of one axis of the align-corners
+// `up`x upsample, the two-channel read built from them, and the four taps of a
+// read at a normalised grid point. Every kernel of the family includes this
+// header, so a point's weights and sums are computed the same way wherever it
+// is read, and its backward scatters to the texels its forward read.
 //
 // Numerics. The weights follow the float32 op order of the plain version's
 // composite_weights_1d: i0 = floor(p), a = p - i0, the v0/v1 validity tests
@@ -113,6 +115,35 @@ __device__ __forceinline__ float2 sample2_bilinear(const float* __restrict__ fb,
     sy = sy + wx[tx] * cy;
   }
   return make_float2(sx, sy);
+}
+
+// The four bilinear taps of one read of grid_sample (align_corners=True,
+// zeros padding) at the normalised point g of an H x W field, in the plain
+// gather's op order (ops/resample.py:grid_sample): x = ((g + 1) * 0.5) *
+// (W - 1), weights (1-wy)(1-wx), (1-wy)wx, wy(1-wx), wy*wx for the taps
+// (x0, y0), (x1, y0), (x0, y1), (x1, y1). ok[t] says whether tap t lies
+// inside the field; off[t] is its texel index y * W + x there (else 0). The
+// grid-sample entry's forward and its backward (grid_sample_bwd.cu) take
+// their taps from here, so both see the same texels and weights.
+__device__ __forceinline__ void grid_taps(float2 g, int H, int W, float* tw,
+                                          int* off, bool* ok) {
+  const float x = (g.x + 1.0f) * 0.5f * (float)(W - 1);
+  const float y = (g.y + 1.0f) * 0.5f * (float)(H - 1);
+  const float x0 = floorf(x), y0 = floorf(y);
+  const float x1 = x0 + 1.0f, y1 = y0 + 1.0f;
+  const float wx = x - x0, wy = y - y0;
+  tw[0] = (1.0f - wy) * (1.0f - wx);
+  tw[1] = (1.0f - wy) * wx;
+  tw[2] = wy * (1.0f - wx);
+  tw[3] = wy * wx;
+  const float tx[4] = {x0, x1, x0, x1};
+  const float ty[4] = {y0, y0, y1, y1};
+#pragma unroll
+  for (int t = 0; t < 4; ++t) {
+    ok[t] = tx[t] >= 0.0f && tx[t] <= (float)(W - 1) && ty[t] >= 0.0f &&
+            ty[t] <= (float)(H - 1);
+    off[t] = ok[t] ? ((int)ty[t] * W + (int)tx[t]) : 0;
+  }
 }
 
 }  // namespace pixflow

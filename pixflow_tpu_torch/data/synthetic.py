@@ -1,5 +1,6 @@
-"""A synthetic BDD100k-shaped corpus on disk, made from a seed, for tests
-and smoke runs of the loader and the CLI:
+"""Synthetic corpora on disk, made from a seed, for tests and smoke runs
+of the loaders and the CLIs. A BDD100k-shaped video corpus for
+pretraining:
 
     <root>/images/train/videoNNN/frameNNNN.jpg
     <root>/flow/pth/train/{forward,backward}/videoNNN.pth   [K, 2, h/8, w/8] f32
@@ -13,7 +14,16 @@ to frame), so that crops and their statistics are not those of noise.
 Flows are a per-video affine motion plus noise at 1/8 of the frame size,
 with the backward flows close to the reversed negated forward ones, as
 `train/driver.py:synthetic_batch` makes them: the cycle mask keeps most
-points."""
+points.
+
+`write_chairs_corpus` writes FlyingChairs' layout for RAFT training
+(`data/raft_datasets.py:flying_chairs`): `<root>/data/NNNNN_img1.ppm`,
+`NNNNN_img2.ppm`, `NNNNN_flow.flo` and `<root>/chairs_split.txt` (1 train,
+2 validation). Each pair is a grating frame and its copy shifted by a
+whole number of pixels, so the flow is that shift (the rolled-in border
+included). `write_image_folder` writes an ImageFolder for the linear
+probe (`<root>/{train,val}/classNN/imgNNNN.jpg`), each class a grating
+under its own colour tint."""
 
 from __future__ import annotations
 
@@ -103,3 +113,54 @@ def write_video_corpus(root: str, frames_per_video: Union[int, Sequence[int]],
         return sum(map(_write_video, jobs))
     with ProcessPoolExecutor(workers, mp_context=get_context("spawn")) as pool:
         return sum(pool.map(_write_video, jobs))
+
+
+def write_chairs_corpus(root: str, n_pairs: int, n_val: int = 0,
+                        frame_hw: tuple[int, int] = (384, 512), seed: int = 0,
+                        max_shift: int = 6) -> int:
+    """FlyingChairs-layout pairs under `root` (FlyingChairs' frames are
+    384 x 512); the last `n_val` are the validation split. Returns the
+    corpus's size in bytes."""
+    from .flow_io import write_flo
+
+    data = os.path.join(root, "data")
+    os.makedirs(data, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    n_bytes = 0
+    for i in range(n_pairs):
+        img1 = grating_frame(seed * 100003 + i, 0, frame_hw)
+        dx, dy = (int(v) for v in rng.integers(-max_shift, max_shift + 1, 2))
+        img2 = np.roll(img1, (dy, dx), axis=(0, 1))  # img2(p + (dx, dy)) = img1(p)
+        flow = np.empty((*frame_hw, 2), np.float32)
+        flow[..., 0], flow[..., 1] = dx, dy
+        paths = [os.path.join(data, f"{i + 1:05d}_{k}") for k in ("img1.ppm", "img2.ppm",
+                                                                  "flow.flo")]
+        Image.fromarray(img1).save(paths[0])
+        Image.fromarray(img2).save(paths[1])
+        write_flo(paths[2], flow)
+        n_bytes += sum(os.path.getsize(p) for p in paths)
+    labels = np.array([1] * (n_pairs - n_val) + [2] * n_val, np.int32)
+    np.savetxt(os.path.join(root, "chairs_split.txt"), labels, fmt="%d")
+    return n_bytes
+
+
+def write_image_folder(root: str, n_classes: int, train_per_class: int, val_per_class: int,
+                       image_hw: tuple[int, int] = (256, 256), seed: int = 0,
+                       quality: int = 90) -> int:
+    """An ImageFolder under `root` with `train/` and `val/` splits; returns
+    its size in bytes."""
+    rng = np.random.default_rng(seed)
+    tints = rng.uniform(0, 255, (n_classes, 3)).astype(np.float32)
+    n_bytes = 0
+    for split, per_class in (("train", train_per_class), ("val", val_per_class)):
+        for c in range(n_classes):
+            d = os.path.join(root, split, f"class{c:02d}")
+            os.makedirs(d, exist_ok=True)
+            for i in range(per_class):
+                frame = grating_frame(seed * 100003 + c * 9973 + i + (split == "val") * 5003,
+                                      0, image_hw).astype(np.float32)
+                img = np.clip(0.5 * frame + 0.5 * tints[c], 0, 255).astype(np.uint8)
+                path = os.path.join(d, f"img{i:04d}.jpg")
+                Image.fromarray(img).save(path, quality=quality)
+                n_bytes += os.path.getsize(path)
+    return n_bytes

@@ -1,8 +1,10 @@
-"""Carry weights from the JAX package's PixPro trees into the port.
+"""Carry weights from the JAX package's PixPro and ResNet trees into the port.
 
 `flax_to_torch(params, batch_stats)` turns the JAX package's parameter and
 batch-statistics trees (numpy or array-likes) into a state_dict with the
-reference's torch names, which `PixPro.load_state_dict` takes. It is the
+reference's torch names, which `PixPro.load_state_dict` takes;
+`flax_resnet_to_torch` does the same for a bare ResNet of any head type
+(the linear probe's, `fc`). It is the
 inverse of `pixflow_tpu/models/convert_pixpro.py:torch_pixpro_to_flax`:
 
     conv kernels     HWIO      -> OIHW
@@ -63,6 +65,13 @@ def _torch_name(path: Tuple[str, ...], stats: bool) -> str:
     if leaf not in names or (stats != (leaf in ("mean", "var"))):
         raise ValueError(f"unrecognized leaf {'/'.join(path)}")
     return ".".join([branch, *mods, names[leaf]])
+
+
+def flax_resnet_to_torch(params, batch_stats) -> "OrderedDict[str, torch.Tensor]":
+    """A bare JAX ResNet's params + batch_stats trees (any head type: `fc`,
+    `fc1`/`fc2`, `bn2` of `conv_head`) -> the port's ResNet state_dict."""
+    sd = flax_to_torch({"encoder": params}, {"encoder": batch_stats})
+    return OrderedDict((k.removeprefix("encoder."), v) for k, v in sd.items())
 
 
 def flax_to_torch(params, batch_stats) -> "OrderedDict[str, torch.Tensor]":

@@ -1,6 +1,6 @@
-"""RAFT, small and basic, inference only: the port of
-`pixflow_tpu/models/raft/`. Its correlation lookup reads through K2's
-grid-sample entry on the card (`corr.py`)."""
+"""RAFT, small and basic: the port of `pixflow_tpu/models/raft/`. Its
+correlation lookup reads through K2's grid-sample entry on the card, and
+its gradient through that entry's backward kernel (`corr.py`)."""
 
 from .convert import load_raft, raft_flax_to_torch
 from .corr import build_corr_pyramid, lookup_corr

@@ -7,9 +7,14 @@ float32 `torch.bmm` and pools the *target* axes 2x2 for each further level.
 `lookup_corr` samples a (2r+1)^2 window around each current flow target at
 every level: bilinear, align_corners=True, zeros padding, which is exactly
 the function of K2's grid-sample entry. On CUDA tensors it reads through
-that kernel (`ops/kernels/point_sample.py:grid_sample`); on CPU tensors, or
-with `plain=True`, through the plain gather `ops/resample.py:grid_sample`,
-whose op order the kernel repeats bit for bit. The JAX package's tent
+that kernel (`ops/kernels/point_sample.py:grid_sample_with_grad`: the entry
+forward, bit for bit, and its own backward kernel for the pyramid's
+gradient, so that RAFT trains on the card); on CPU tensors, or with
+`plain=True`, through the plain gather `ops/resample.py:grid_sample`, whose
+op order the kernel repeats bit for bit and whose autograd gives the
+gradient there. Either way the gradient reaches the pyramid, and through
+the pooling and the product the feature maps; the sampling coordinates
+take none (RAFT detaches them). The JAX package's tent
 einsum form (`lookup_corr_mxu`) exists for the TPU, whose gathers do not
 vectorise; it is not ported.
 
@@ -73,9 +78,10 @@ def window_grid(centroid: torch.Tensor, radius: int, level: int, hl: int,
 
 def _read_level(corr: torch.Tensor, grid: torch.Tensor, plain: bool) -> torch.Tensor:
     """[N, h, w, 1] read at [N, Hg, Wg, 2]: per view of the leading axis
-    under MAX_VIEW_ELEMENTS, through K2's grid entry on the card."""
+    under MAX_VIEW_ELEMENTS, through K2's grid entry on the card (with its
+    backward kernel for the view's gradient)."""
     read = resample.grid_sample if plain or corr.device.type == "cpu" \
-        else kernels.grid_sample
+        else kernels.grid_sample_with_grad
     n = corr.shape[0]
     per_row = max(corr[0].numel(), grid[0].numel())
     rows = max(MAX_VIEW_ELEMENTS // per_row, 1)

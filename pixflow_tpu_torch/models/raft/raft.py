@@ -7,8 +7,10 @@ refinement with the coordinates detached every iteration
 
 Images and flows are channels-last at the public functions, as in the JAX
 package: images [B, H, W, 3] in [0, 255], flows [B, h, w, 2]. Inside,
-convolutions run on NCHW tensors. Inference only here: pretraining uses
-RAFT as a frozen flow oracle (reference `main_pretrain.py:55-57`)."""
+convolutions run on NCHW tensors. Pretraining uses RAFT as a frozen flow
+oracle (reference `main_pretrain.py:55-57`); `train/raft_trainer.py`
+trains it, the gradient reaching the correlation pyramid through the
+lookup's backward (`corr.py`) and never the detached coordinates."""
 
 from __future__ import annotations
 

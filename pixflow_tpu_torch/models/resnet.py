@@ -2,8 +2,14 @@
 (the reference's `contrast/resnet.py` zoo: same architectures, width/group/
 dilation knobs, He fan-out init, zero-gamma on each block's last BN).
 
-Input images are [B, H, W, 3] and the `early_return` head returns the c5
-map [B, H/32, W/32, C]. Inside, convolutions take NCHW tensors in
+Input images are [B, H, W, 3]. The head types are the JAX package's:
+`early_return` returns the c5 map [B, H/32, W/32, C] (what PixPro's
+encoders use), `multi_layer` the maps (c2, c3, c4, c5), `pass` the global
+average of c5 [B, C], `reduce` that average through one `fc` (the linear
+probe's), `mlp_head`
+the average through `fc1`, ReLU and `fc2`, and `conv_head` c5 through a
+1x1 `fc1`, `bn2`, ReLU, a 7x7 average pool (no padding) and `fc2`, whose
+width assumes the 7x7 c5 of a 224 px input. Inside, convolutions take NCHW tensors in
 `channels_last` memory (the same bytes as NHWC) and every BatchNorm is a
 `ViewBatchNorm` over the channel-last view. Module names are the
 reference's torch names (`conv1`, `bn1`, `layer1.0.conv2`,
@@ -128,17 +134,34 @@ def _apply_shortcut(block, x):
     return bn_nchw(bn, conv(x))
 
 
+def _dense(cin: int, cout: int, generator: Optional[torch.Generator]) -> nn.Linear:
+    """A Linear layer with flax Dense's default init: weight normal with
+    variance 1 / fan_in (lecun normal, untruncated), bias zero."""
+    fc = nn.Linear(cin, cout)
+    with torch.no_grad():
+        fc.weight.normal_(0.0, 1.0 / math.sqrt(cin), generator=generator)
+        fc.bias.zero_()
+    return fc
+
+
+HEAD_TYPES = ("early_return", "pass", "multi_layer", "reduce", "mlp_head", "conv_head")
+
+
 class ResNet(nn.Module):
-    """Configurable ResNet trunk with the JAX package's `early_return` head
-    (the c5 map, what PixPro's encoders use); the other heads serve linear
-    evaluation and are not ported yet."""
+    """Configurable ResNet trunk with one of the JAX package's head types
+    (module docstring); `low_dim` is the output width of the `reduce`,
+    `mlp_head` and `conv_head` heads."""
 
     def __init__(self, block: str = "bottleneck", layers: Sequence[int] = (3, 4, 6, 3),
                  width: int = 1, groups: int = 1, width_per_group: int = 64,
                  avg_down: bool = False, deep_stem: bool = False,
                  layer4_dilation: int = 1, bn_momentum: float = 0.9,
-                 view_groups: int = 1, generator: Optional[torch.Generator] = None):
+                 view_groups: int = 1, generator: Optional[torch.Generator] = None,
+                 head_type: str = "early_return", low_dim: int = 128):
         super().__init__()
+        if head_type not in HEAD_TYPES:
+            raise NotImplementedError(f"head_type {head_type!r}; choose from {HEAD_TYPES}")
+        self.head_type = head_type
         common = dict(view_groups=view_groups, bn_momentum=bn_momentum,
                       generator=generator)
         base = 64 * width
@@ -166,10 +189,22 @@ class ResNet(nn.Module):
                     base_width=width_per_group, **common))
                 inplanes = planes * block_cls.expansion
             setattr(self, f"layer{s + 1}", nn.Sequential(*blocks))
-        self.feature_dim = inplanes
+        self.feature_dim = mid = inplanes
+        if head_type == "reduce":
+            self.fc = _dense(mid, low_dim, generator)
+        elif head_type == "mlp_head":
+            self.fc1 = _dense(mid, mid, generator)
+            self.fc2 = _dense(mid, low_dim, generator)
+        elif head_type == "conv_head":
+            self.fc1 = _conv(mid, mid, 1, generator=generator)
+            self.bn2 = ViewBatchNorm(mid, view_groups, bn_momentum)
+            self.fc2 = _dense(mid, low_dim, generator)
 
-    def forward(self, im: torch.Tensor) -> torch.Tensor:
-        """im [B, H, W, C] -> c5 [B, H/32, W/32, feature_dim]."""
+    def forward(self, im: torch.Tensor):
+        """im [B, H, W, C] -> the head's output: c5 [B, H/32, W/32,
+        feature_dim] (`early_return`), (c2, c3, c4, c5) channels last
+        (`multi_layer`), the pooled c5 [B, feature_dim] (`pass`), or
+        [B, low_dim]."""
         x = im.permute(0, 3, 1, 2).contiguous(memory_format=torch.channels_last)
         if self.deep_stem:
             x = self.stem3(self.stem2(self.stem1(x)))
@@ -177,8 +212,25 @@ class ResNet(nn.Module):
             x = self.conv1(x)
         x = F.relu(bn_nchw(self.bn1, x))
         x = F.max_pool2d(x, 3, 2, padding=1)
-        x = self.layer4(self.layer3(self.layer2(self.layer1(x))))
-        return x.permute(0, 2, 3, 1)
+        feats = []
+        for layer in (self.layer1, self.layer2, self.layer3, self.layer4):
+            x = layer(x)
+            feats.append(x)
+        if self.head_type == "multi_layer":
+            return tuple(f.permute(0, 2, 3, 1) for f in feats)
+        if self.head_type == "early_return":
+            return x.permute(0, 2, 3, 1)
+        if self.head_type == "conv_head":
+            y = F.relu(bn_nchw(self.bn2, self.fc1(x)))
+            y = F.avg_pool2d(y, 7, 1)
+            # flatten in NHWC order, as the JAX package's reshape
+            return self.fc2(y.permute(0, 2, 3, 1).reshape(y.shape[0], -1))
+        pooled = torch.mean(x, dim=(2, 3))
+        if self.head_type == "mlp_head":
+            return self.fc2(F.relu(self.fc1(pooled)))
+        if self.head_type == "pass":
+            return pooled
+        return self.fc(pooled)
 
 
 # factory registry (`pixflow_tpu/models/resnet.py:MODEL_REGISTRY`)

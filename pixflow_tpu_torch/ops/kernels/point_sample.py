@@ -23,7 +23,17 @@ read at (2r+1)^2 window points each, 4 levels an iteration). On the card it read
 gives `resample.grid_sample`'s bits; on the CPU it takes
 `resample.grid_sample_auto`, the JAX package's dispatch by shape (the tent
 contractions for many points over a small field, which sum in another
-order, else the gather). It counts on `grid_sample.launches`."""
+order, else the gather). It counts on `grid_sample.launches`.
+
+    grid_sample_backward(grad_out, grid, img_shape) = d<grad_out, grid_sample(img, grid)>/d img
+
+is the gradient of that entry with respect to the field, a kernel of its
+own (`csrc/grid_sample_bwd.cu`, counted on `grid_sample_backward.launches`);
+its plain version `grid_sample_backward_plain` scatters the four taps with
+`index_add_` in the plain gather's tap order. `grid_sample_with_grad` binds
+the two as one `torch.autograd.Function` for RAFT's training
+(`models/raft/corr.py`): its forward is `grid_sample`, bit for bit, and it
+refuses a grid that requires a gradient (RAFT detaches its coordinates)."""
 
 from __future__ import annotations
 
@@ -33,7 +43,7 @@ import functools
 import numpy as np
 import torch
 
-from ..resample import grid_sample_auto
+from ..resample import grid_sample_auto, grid_taps
 from .build import c_function
 
 
@@ -164,3 +174,114 @@ def grid_sample(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
 
 
 grid_sample.launches = 0
+
+
+def grid_sample_backward_plain(grad_out: torch.Tensor, grid: torch.Tensor,
+                               img_shape) -> torch.Tensor:
+    """Plain PyTorch version of the entry's field gradient: grad_out
+    [B, Hg, Wg, C], grid [B, Hg, Wg, 2] -> grad_img `img_shape` = [B, H, W, C]
+    float32. Each tap's term, weight * grad_out, is added with `index_add_`
+    at its texel, tap by tap in the plain gather's order
+    (`ops/resample.py:grid_sample`); a tap outside the field adds nothing."""
+    b, h, w, c = img_shape
+    gb, gh, gw, _ = grid.shape
+    if gb != b or tuple(grad_out.shape) != (b, gh, gw, c):
+        raise ValueError(f"grid_sample_backward_plain shapes: grad_out "
+                         f"{tuple(grad_out.shape)}, grid {tuple(grid.shape)}, "
+                         f"img {tuple(img_shape)}")
+    g = grad_out.reshape(b, gh * gw, c).float()
+    base = (torch.arange(b, device=grid.device) * (h * w))[:, None]
+    out = torch.zeros((b * h * w, c), dtype=torch.float32, device=grid.device)
+    for xc, yc, wgt, valid in grid_taps(grid.reshape(b, gh * gw, 2), h, w):
+        idx = base + torch.clamp(yc, 0, h - 1).to(torch.int64) * w \
+            + torch.clamp(xc, 0, w - 1).to(torch.int64)
+        term = torch.where(valid[..., None], wgt[..., None] * g,
+                           torch.zeros((), dtype=g.dtype, device=g.device))
+        out.index_add_(0, idx.reshape(-1), term.reshape(-1, c))
+    return out.reshape(b, h, w, c)
+
+
+@functools.cache
+def _grid_bwd_kernel():
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    return c_function("pixflow_grid_sample_bwd", [vp, vp, vp, ci, ci, ci, ci, ci, vp])
+
+
+# an H100 block's shared memory (227 KB) holds at least one row of the
+# gradient field, 32 floats and a byte a texel of scratch
+_SHARED_FLOATS = 232448 // 4
+
+
+def _bwd_row_floats(h: int, w: int, c: int) -> int:
+    return h * w * c + 32 + (h * w + 3) // 4
+
+
+def grid_sample_backward(grad_out: torch.Tensor, grid: torch.Tensor,
+                         img_shape) -> torch.Tensor:
+    """The gradient of `grid_sample(img, grid)` with respect to img, given
+    grad_out [B, Hg, Wg, C]: the CUDA kernel for CUDA tensors, the plain
+    version for CPU tensors. grad_out and grid float32 (grad_out is made
+    contiguous: it arrives from reshape and cat backward), img_shape
+    [B, H, W, C]; returns [B, H, W, C] float32."""
+    if grid.device.type == "cpu":
+        return grid_sample_backward_plain(grad_out, grid, img_shape)
+    if grid.device.type != "cuda" or grad_out.device != grid.device:
+        raise ValueError(f"grid_sample_backward: grad_out on {grad_out.device}, grid on "
+                         f"{grid.device}; both must be on one CUDA device")
+    if grad_out.dtype != torch.float32 or grid.dtype != torch.float32:
+        raise ValueError(f"grid_sample_backward takes float32 (got {grad_out.dtype}, "
+                         f"{grid.dtype})")
+    b, h, w, c = (int(v) for v in img_shape)
+    if grid.dim() != 4 or grid.shape[-1] != 2 or grid.shape[0] != b \
+            or tuple(grad_out.shape) != (b, grid.shape[1], grid.shape[2], c):
+        raise ValueError(f"grid_sample_backward shapes: grad_out {tuple(grad_out.shape)} "
+                         f"must be [B,Hg,Wg,C], grid {tuple(grid.shape)} [B,Hg,Wg,2], "
+                         f"img {(b, h, w, c)}")
+    if not grid.is_contiguous() or grid.data_ptr() % 8:
+        raise ValueError("grid_sample_backward: the grid must be contiguous and 8-byte "
+                         "aligned (float2 loads)")
+    grad_out = grad_out.contiguous()
+    n = grid.shape[1] * grid.shape[2]
+    if b * h * w * c >= 2 ** 31 or b * n * max(c, 2) >= 2 ** 31:
+        raise ValueError("grid_sample_backward: too large for the kernel's 32-bit offsets")
+    if _bwd_row_floats(h, w, c) > _SHARED_FLOATS:
+        raise ValueError(f"grid_sample_backward: a row of {h}x{w}x{c} floats does not fit "
+                         f"a block's shared memory")
+    grad_img = torch.empty((b, h, w, c), dtype=torch.float32, device=grid.device)
+    if grad_img.numel() == 0:
+        return grad_img
+    rc = _grid_bwd_kernel()(grad_out.data_ptr(), grid.data_ptr(), grad_img.data_ptr(),
+                            b, h, w, c, n, torch.cuda.current_stream(grid.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"grid_sample_backward kernel launch failed (cudaError {rc})")
+    grid_sample_backward.launches += 1
+    return grad_img
+
+
+grid_sample_backward.launches = 0
+
+
+class _GridSampleFn(torch.autograd.Function):
+    """grid_sample's forward; the field's gradient through
+    `grid_sample_backward`; none for the grid."""
+
+    @staticmethod
+    def forward(ctx, img, grid):
+        ctx.save_for_backward(grid)
+        ctx.img_shape = tuple(img.shape)
+        return grid_sample(img, grid)
+
+    @staticmethod
+    def backward(ctx, grad_out):
+        (grid,) = ctx.saved_tensors
+        return grid_sample_backward(grad_out, grid, ctx.img_shape), None
+
+
+def grid_sample_with_grad(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """`grid_sample(img, grid)` with a gradient for img: the grid-sample
+    entry forward and `grid_sample_backward` backward on the card. Raises
+    when the grid requires a gradient, which neither kernel computes."""
+    if grid.requires_grad:
+        raise ValueError("grid_sample_with_grad: no gradient for the grid (detach the "
+                         "sampling coordinates, as RAFT does every iteration)")
+    return _GridSampleFn.apply(img, grid)

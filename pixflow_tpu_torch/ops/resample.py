@@ -71,6 +71,27 @@ def _gather_hw(img: torch.Tensor, yi: torch.Tensor, xi: torch.Tensor) -> torch.T
     return torch.gather(img.reshape(b, h * w, c), 1, idx)
 
 
+def grid_taps(grid: torch.Tensor, h: int, w: int):
+    """The four bilinear taps (x, y, weight, inside) of reads at normalised
+    points grid [..., 2] of an h x w field (align_corners=True), in the
+    gather's order: (x0, y0), (x1, y0), (x0, y1), (x1, y1). A tap outside
+    the field has inside=False. `grid_sample` reads them and the kernels'
+    `grid_sample_backward_plain` scatters to them."""
+    x = (grid[..., 0] + 1.0) * 0.5 * (w - 1)
+    y = (grid[..., 1] + 1.0) * 0.5 * (h - 1)
+    x0 = torch.floor(x)
+    y0 = torch.floor(y)
+    x1 = x0 + 1.0
+    y1 = y0 + 1.0
+    wx = x - x0
+    wy = y - y0
+    return [(xc, yc, wgt, (xc >= 0) & (xc <= w - 1) & (yc >= 0) & (yc <= h - 1))
+            for xc, yc, wgt in ((x0, y0, (1 - wy) * (1 - wx)),
+                                (x1, y0, (1 - wy) * wx),
+                                (x0, y1, wy * (1 - wx)),
+                                (x1, y1, wy * wx))]
+
+
 def grid_sample(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     """Bilinear sampling, align_corners=True, zeros padding.
 
@@ -80,21 +101,8 @@ def grid_sample(img: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
     if gb != b:
         raise ValueError(f"batch mismatch {gb} vs {b}")
 
-    x = ((grid[..., 0] + 1.0) * 0.5 * (w - 1)).reshape(b, gh * gw)
-    y = ((grid[..., 1] + 1.0) * 0.5 * (h - 1)).reshape(b, gh * gw)
-    x0 = torch.floor(x)
-    y0 = torch.floor(y)
-    x1 = x0 + 1.0
-    y1 = y0 + 1.0
-    wx = x - x0
-    wy = y - y0
-
     out = torch.zeros((b, gh * gw, c), dtype=img.dtype, device=img.device)
-    for yc, xc, wgt in ((y0, x0, (1 - wy) * (1 - wx)),
-                        (y0, x1, (1 - wy) * wx),
-                        (y1, x0, wy * (1 - wx)),
-                        (y1, x1, wy * wx)):
-        valid = (xc >= 0) & (xc <= w - 1) & (yc >= 0) & (yc <= h - 1)
+    for xc, yc, wgt, valid in grid_taps(grid.reshape(b, gh * gw, 2), h, w):
         xi = torch.clamp(xc, 0, w - 1).to(torch.int64)
         yi = torch.clamp(yc, 0, h - 1).to(torch.int64)
         tap = _gather_hw(img, yi, xi)

@@ -3,7 +3,7 @@
     python -m pixflow_tpu_torch.profile_step [--recipe NAME] [--steps N] [--trace PATH]
                                              [--plain-kernels] [--batch-size B]
                                              [--use-flow-frames] [--no-flow-up-lazy]
-                                             [--live-raft]
+                                             [--live-raft] [--raft-train]
 
 Builds the recipe's trainer (synthetic data from a seed), runs two warm-up
 steps, then traces `--steps` telemetry-free steps with `torch.profiler`
@@ -19,7 +19,11 @@ path, `--batch-size` overrides the recipe's batch (multi-span holds 2F
 crops a sample). `--live-raft` computes the flows in the step with
 RAFT-small from the batch's frames (a seeded random checkpoint, written to
 a temporary `raft-small.pth`; 8 pairs a RAFT forward, the reference's
-per-GPU default). `--trace` also writes the Chrome trace."""
+per-GPU default). `--raft-train` profiles a RAFT train step instead:
+RAFT-basic at the chairs stage's crop (368 x 496), batch 8 (or
+`--batch-size`), 12 iterations, AdamW, seeded weights and a random batch
+on the card, with PyTorch's TF32 defaults. `--trace` also writes the
+Chrome trace."""
 
 from __future__ import annotations
 
@@ -38,6 +42,7 @@ from .train import build_trainer, run_steps, synthetic_batch
 # device kernel name fragments -> family (first match wins)
 FAMILIES = (
     ("pair_sums_bwd", ("pair_sums_bwd_kernel",)),
+    ("grid_sample_bwd", ("grid_sample_bwd_kernel",)),
     ("pair_sums", ("pair_sums_kernel",)),
     ("point_sample", ("point_sample_kernel",)),
     ("grid_sample", ("grid_sample_kernel",)),
@@ -67,7 +72,10 @@ def main(argv=None):
     ap.add_argument("--use-flow-frames", action="store_true")
     ap.add_argument("--no-flow-up-lazy", action="store_true")
     ap.add_argument("--live-raft", action="store_true")
+    ap.add_argument("--raft-train", action="store_true")
     args = ap.parse_args(argv)
+    if args.raft_train:
+        return _profile_raft_train(args)
     if args.live_raft:
         with tempfile.TemporaryDirectory(prefix="pixflow_raft_") as tmp:
             from .models.raft import seeded_raft
@@ -91,8 +99,48 @@ def _profile(args, raft_path: str):
         cfg.flow.small, cfg.flow.flow_bs = True, 8
     batch = synthetic_batch(cfg, seed=0)
     trainer = build_trainer(cfg, dev, 68, plain_kernels=args.plain_kernels)
+    state = {"trainer": trainer}
+
+    def run(n):
+        state["trainer"] = run_steps(cfg, [batch], n, dev, trainer=state["trainer"])
+
+    _trace(args, dev, run, {
+        "recipe": args.recipe, "plain_kernels": args.plain_kernels,
+        "batch": cfg.data.batch_size, "use_flow_frames": cfg.flow.use_flow_frames,
+        "flow_up_lazy": cfg.flow.flow_up_lazy, "live_raft": bool(raft_path),
+        "flow_bs": cfg.flow.flow_bs if raft_path else None})
+
+
+def _profile_raft_train(args):
+    from .models.raft import RAFT
+    from .train.raft_trainer import make_raft_train_step, raft_optimizer, raft_train_state
+
+    dev = resolve_device("cuda")
+    torch.backends.cudnn.benchmark = True
+    b, (h, w) = args.batch_size or 8, (368, 496)
+    g = torch.Generator(device=dev).manual_seed(0)
+    batch = {"img1": 255 * torch.rand(b, h, w, 3, device=dev, generator=g),
+             "img2": 255 * torch.rand(b, h, w, 3, device=dev, generator=g),
+             "flow": 3 * torch.randn(b, h, w, 2, device=dev, generator=g),
+             "valid": torch.ones(b, h, w, device=dev)}
+    model = RAFT(small=False, generator=torch.Generator().manual_seed(0)).to(dev)
+    _, tx = raft_optimizer(4e-4, 120000, 1e-4)
+    state = raft_train_state(model, tx)
+    step = make_raft_train_step(tx, iters=12, plain=args.plain_kernels)
+
+    def run(n):
+        for _ in range(n):
+            step(state, batch)
+
+    _trace(args, dev, run, {"raft_train": "basic", "crop": [h, w], "batch": b, "iters": 12,
+                            "plain_kernels": args.plain_kernels})
+
+
+def _trace(args, dev, run, meta: dict):
+    """Two warm-up steps, then run(args.steps) under the profiler;
+    prints the JSON line."""
     torch.cuda.reset_peak_memory_stats(dev)
-    trainer = run_steps(cfg, [batch], 2, dev, trainer=trainer)
+    run(2)
     torch.cuda.synchronize()
     warm_peak = torch.cuda.max_memory_allocated(dev)
     torch.cuda.reset_peak_memory_stats(dev)
@@ -100,7 +148,7 @@ def _profile(args, raft_path: str):
     acts = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        trainer = run_steps(cfg, [batch], args.steps, dev, trainer=trainer)
+        run(args.steps)
         torch.cuda.synchronize()
         host_s = time.perf_counter() - t0
 
@@ -131,10 +179,7 @@ def _profile(args, raft_path: str):
         prof.export_chrome_trace(args.trace)
     n = args.steps
     print(json.dumps({
-        "recipe": args.recipe, "device": torch.cuda.get_device_name(0),
-        "plain_kernels": args.plain_kernels, "batch": cfg.data.batch_size,
-        "use_flow_frames": cfg.flow.use_flow_frames, "flow_up_lazy": cfg.flow.flow_up_lazy,
-        "live_raft": bool(raft_path), "flow_bs": cfg.flow.flow_bs if raft_path else None,
+        **meta, "device": torch.cuda.get_device_name(0),
         "traced_steps": n, "host_ms_per_step": 1e3 * host_s / n,
         "device_busy_ms_per_step": busy_us / 1e3 / n,
         "device_idle_share": 1.0 - busy_us / 1e6 / host_s,

@@ -509,3 +509,130 @@ def test_raft_through_the_kernel_equals_the_plain_route(dev, small):
     assert launched == 4 * 3 and grid_sample.launches - before == launched
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+# --- RAFT training: the grid entry's backward kernel ---------------------------
+
+def _backward_cases(dev):
+    """(name, grad_out, grid, img_shape): a RAFT-basic lookup level (9 x 9
+    windows about centroids at level 1 of a 46 x 62 feature map, batch 2),
+    and a general grid with two channels: points outside, on the borders,
+    on texel centres, and 9 a row on one texel."""
+    from pixflow_tpu_torch.models.raft.corr import window_grid
+
+    g = torch.Generator(device=dev).manual_seed(20)
+    h, w = 46, 62
+    coords = resample.coords_grid(h, w, device=dev)[None] \
+        + 4 * torch.randn(2, h, w, 2, device=dev, generator=g)
+    grid = window_grid(coords.reshape(-1, 2), 4, 1, 23, 31)
+    n = grid.shape[0]
+    yield "raft_level", torch.randn(n, 9, 9, 1, device=dev, generator=g), grid, (n, 23, 31, 1)
+    grid = torch.rand(3, 6, 9, 2, device=dev, generator=g) * 2.6 - 1.3
+    grid[:, 0, :, 0] = -1.0
+    grid[:, 1, :, 1] = 1.0
+    grid[:, 2] = 2 * 3 / 6 - 1
+    grid[:, 3, :, 0] = 2 * 2.25 / 6 - 1
+    grid[:, 3, :, 1] = 2 * 1.5 / 4 - 1
+    grid[:, 4] = 5.0
+    yield "general", torch.randn(3, 6, 9, 2, device=dev, generator=g), grid, (3, 5, 7, 2)
+
+
+def test_grid_sample_backward_kernel_matches_plain(dev):
+    """Against `grid_sample_backward_plain` on the card (index_add_ with
+    atomics there): each texel's terms summed in another order, so
+    |diff| <= 2^-21 x the sum of the terms' magnitudes; the kernel's own
+    sums are in a fixed order, so two runs are equal to the bit."""
+    from pixflow_tpu_torch.ops.kernels import grid_sample_backward, grid_sample_backward_plain
+
+    for name, go, grid, shape in _backward_cases(dev):
+        before = grid_sample_backward.launches
+        got = grid_sample_backward(go, grid, shape)
+        again = grid_sample_backward(go, grid, shape)
+        want = grid_sample_backward_plain(go, grid, shape)
+        mag = grid_sample_backward_plain(go.abs(), grid, shape)
+        torch.cuda.synchronize()
+        assert grid_sample_backward.launches == before + 2, name
+        assert torch.equal(got, again), name
+        assert torch.all((got - want).abs() <= 2.0 ** -21 * mag), name
+        assert float(mag.max()) > 0, name
+
+
+def test_grid_sample_with_grad_on_the_card(dev):
+    """The Function's forward is the grid entry, bit for bit; its backward
+    is the backward kernel, once a read (a non-contiguous incoming gradient
+    included); a grid that requires a gradient raises."""
+    from pixflow_tpu_torch.ops.kernels import grid_sample_backward, grid_sample_with_grad
+
+    g = torch.Generator(device=dev).manual_seed(21)
+    img = torch.randn(4, 7, 9, 1, device=dev, generator=g, requires_grad=True)
+    grid = torch.rand(4, 5, 5, 2, device=dev, generator=g) * 2.2 - 1.1
+    out = grid_sample_with_grad(img, grid)
+    assert torch.equal(out, grid_sample(img.detach(), grid))
+    before = grid_sample_backward.launches
+    wide = torch.randn(4, 5, 5, 3, device=dev, generator=g)
+    (torch.cat([out, out.detach()], dim=-1) * wide[..., :2]).sum().backward()
+    assert grid_sample_backward.launches == before + 1
+    ref = img.detach().clone().requires_grad_()
+    (resample.grid_sample(ref, grid) * wide[..., :1]).sum().backward()
+    torch.testing.assert_close(img.grad, ref.grad, rtol=1e-5, atol=1e-6)
+    with pytest.raises(ValueError, match="no gradient for the grid"):
+        grid_sample_with_grad(img, grid.clone().requires_grad_())
+
+
+def test_grid_sample_backward_rejects_what_the_kernel_does_not_take(dev):
+    from pixflow_tpu_torch.ops.kernels import grid_sample_backward
+
+    go = torch.zeros(2, 3, 3, 1, device=dev)
+    grid = torch.zeros(2, 3, 3, 2, device=dev)
+    with pytest.raises(ValueError, match="shared memory"):
+        grid_sample_backward(go, grid, (2, 300, 300, 1))
+    with pytest.raises(ValueError, match="float32"):
+        grid_sample_backward(go.double(), grid, (2, 4, 4, 1))
+    with pytest.raises(ValueError, match="shapes"):
+        grid_sample_backward(go, grid, (3, 4, 4, 1))
+
+
+def test_raft_small_train_step_through_the_kernels(dev):
+    """One RAFT-small train step at 64 x 96, batch 2, 3 iterations: 12
+    grid-entry launches forward and 12 backward, finite gradients that
+    reach fnet, and the loss and every gradient within 1e-4 relative (norm)
+    of the same step through the plain gather and its autograd (TF32 off,
+    cuDNN deterministic)."""
+    from pixflow_tpu_torch.models.raft import seeded_raft
+    from pixflow_tpu_torch.ops.kernels import grid_sample_backward
+    from pixflow_tpu_torch.train.raft_trainer import (make_raft_train_step,
+                                                      raft_optimizer, raft_train_state)
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    g = torch.Generator(device=dev).manual_seed(22)
+    batch = {"img1": 255 * torch.rand(2, 64, 96, 3, device=dev, generator=g),
+             "img2": 255 * torch.rand(2, 64, 96, 3, device=dev, generator=g),
+             "flow": 3 * torch.randn(2, 64, 96, 2, device=dev, generator=g),
+             "valid": torch.ones(2, 64, 96, device=dev)}
+    runs = {}
+    for plain in (False, True):
+        model = seeded_raft(True, seed=23).to(dev)
+        _, tx = raft_optimizer(4e-4, 100, 1e-4)
+        state = raft_train_state(model, tx)
+        grads = {}
+        for n, p in model.named_parameters():
+            p.register_post_accumulate_grad_hook(
+                lambda p, n=n: grads.__setitem__(n, p.grad.detach().clone()))
+        before = (grid_sample.launches, grid_sample_backward.launches)
+        _, m = make_raft_train_step(tx, iters=3, plain=plain)(state, batch)
+        torch.cuda.synchronize()
+        runs[plain] = (float(m["loss"]), grads, (grid_sample.launches - before[0],
+                                                 grid_sample_backward.launches - before[1]))
+    torch.backends.cudnn.deterministic = False
+    (loss_k, grads_k, launches_k), (loss_p, grads_p, launches_p) = runs[False], runs[True]
+    assert launches_k == (12, 12) and launches_p == (0, 0)
+    assert abs(loss_k - loss_p) <= 1e-6 * abs(loss_p)
+    assert float(grads_k["fnet.conv1.weight"].abs().max()) > 0
+    # the biases ahead of an instance norm have a gradient of zero up to
+    # rounding: a floor of 1e-8 of all gradients' norm
+    total = math.sqrt(sum(float(gp.norm()) ** 2 for gp in grads_p.values()))
+    for n, gk in grads_k.items():
+        assert torch.isfinite(gk).all(), n
+        gp = grads_p[n]
+        assert float((gk - gp).norm()) <= 1e-4 * float(gp.norm()) + 1e-8 * total, n
