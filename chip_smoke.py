@@ -17,8 +17,13 @@ from a seed, and checks which kernels that run launched. The same recipe
 then runs on its other paths: `materialize` (--no-flow_up_lazy: whole
 720 x 1280 fields through K2, held against the lazy step in float32),
 `multispan_parity_f32` and `multispan` (--use_flow_frames: all 15
-(span, start) windows, batch 32). RAFT follows, with seeded random
-weights (none ship with the repository; its flows carry no meaning):
+(span, start) windows, batch 32). `ddp_parity` then trains the recipe
+data-parallel: two spawned ranks on the one card, joined by gloo (NCCL
+refuses two ranks on one device: the phase asks it and quotes the
+answer), each with its 32 rows of the global batch 64 and its BatchNorm
+statistics and gradients reduced over both, for two float32 steps through
+the kernels, held against one process at batch 64. RAFT follows, with
+seeded random weights (none ship with the repository; its flows carry no meaning):
 `kernel_raft_lookup` holds K2's grid-sample entry against the plain gather
 at RAFT-small's correlation lookup shapes (720 x 1280 frames, micro-batch
 4, every pyramid level), `raft_parity_f32` RAFT small and basic through
@@ -35,7 +40,10 @@ recipe from files: it writes a synthetic BDD100k-shaped corpus (720 x 1280 JPEG
 frames, six a video, and .pth flows), times the port's loader alone (also
 with the photometric ops left to the card), then runs
 `python -m pixflow_tpu_torch.main_pretrain` for two epochs and again with
-`--auto-resume` for a third, and one epoch multi-span with `--device-aug`
+`--auto-resume` for a third, the same two epochs through
+`pixflow_tpu_torch.main_pretrain_multihost` as a group of one on NCCL
+(`ddp_nccl`: torchrun's variables, a save and an `--auto-resume`, held
+against the one-process run), one epoch multi-span with `--device-aug`
 and `--mask-ratio-exact`, runs `python -m pixflow_tpu_torch.precompute_flows`
 over 8 videos and one epoch of live RAFT-small through the CLI, and checks
 the logged metrics, the checkpoints, the kernel launches and the
@@ -814,6 +822,247 @@ def multispan_run(dev):
     return launches
 
 
+# --- phase 6b: data parallelism, two ranks on the one card --------------------
+
+DDP_RANKS = 2
+DDP_SEEDS = (50, 51)  # the two steps' global batches
+
+
+def _ddp_cfg():
+    """The recipe at its global batch 64, float32, every step logged."""
+    from pixflow_tpu_torch.configs import get_recipe
+    cfg = get_recipe(RECIPE)
+    cfg.runtime.compute_dtype = "float32"
+    cfg.runtime.print_freq = 1
+    return cfg
+
+
+def _ddp_rank(rank, world, port, out_dir, device, cfg_fn):
+    """One rank of `ddp_parity` (a spawned process): joins the others by
+    gloo on `device`, builds the seeded model with its BatchNorms over the
+    group, takes its rows of each global batch for one step each, and saves
+    its metrics, step times, the gradient all-reduce's time, its peak
+    memory, its kernel launches and its final state."""
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port), RANK=str(rank),
+                      WORLD_SIZE=str(world), LOCAL_RANK="0")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    from pixflow_tpu_torch.models import init_momentum_from_online
+    from pixflow_tpu_torch.ops.kernels import KERNELS
+    from pixflow_tpu_torch.parallel import (all_reduce_sum_, init_distributed, local_rows,
+                                            shutdown, use_device)
+    from pixflow_tpu_torch.train import build_model, build_trainer, run_steps, synthetic_batch
+
+    ctx, dev = init_distributed(device, backend="gloo")
+    use_device(dev)
+    torch.set_num_threads(max(len(os.sched_getaffinity(0)) // world, 1))  # the host is shared
+    try:
+        cfg = cfg_fn()
+        batches = [local_rows(synthetic_batch(cfg, seed=s), rank, world) for s in DDP_SEEDS]
+        cfg.data.batch_size //= world  # per rank: the global batch stays the same
+        model = build_model(cfg, dev, ctx.group)  # the same seed on every rank
+        init_momentum_from_online(model)
+        trainer = build_trainer(cfg, dev, STEPS_PER_EPOCH, model=model, ctx=ctx)
+        sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        for kern in KERNELS:
+            kern.launches = 0
+        step_s, states = [], []
+        for b in batches:
+            sync()
+            t = time.perf_counter()
+            trainer = run_steps(cfg, [b], 1, dev, trainer=trainer)
+            sync()
+            step_s.append(time.perf_counter() - t)
+            states.append({k: v.to("cpu", copy=True)
+                           for k, v in trainer.state.model.state_dict().items()})
+        launches = {k.__name__: k.launches for k in KERNELS}
+        peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+        # the gradient all-reduce alone: one flat buffer of every trainable
+        # parameter's gradient, as the step sends it
+        grads = [torch.zeros_like(p) for n, p in trainer.state.model.named_parameters()
+                 if n in trainer.state.opt_state.momentum]
+        reduce_s = []
+        for _ in range(3):
+            sync()
+            t = time.perf_counter()
+            all_reduce_sum_(grads, ctx.group)
+            sync()
+            reduce_s.append(time.perf_counter() - t)
+        torch.save({"history": trainer.history, "step_s": step_s, "reduce_s": reduce_s,
+                    "peak": peak, "launches": launches,
+                    "grad_bytes": sum(g.numel() * g.element_size() for g in grads),
+                    "states": states}, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        shutdown(ctx)
+
+
+def _nccl_two_ranks_one_card(rank, port, out_dir):
+    """Two NCCL ranks on cuda:0: the first collective's error, if any."""
+    import torch.distributed as tdist
+    os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=str(port))
+    torch.cuda.set_device(0)
+    msg = None
+    try:
+        tdist.init_process_group("nccl", init_method="env://", rank=rank, world_size=2)
+        t = torch.ones(4, device="cuda:0")
+        tdist.all_reduce(t)
+        torch.cuda.synchronize()
+    except Exception as e:  # the answer this probe is for
+        msg = f"{type(e).__name__}: {e}"
+    with open(os.path.join(out_dir, f"nccl{rank}.txt"), "w") as f:
+        f.write(msg or "")
+    os._exit(0)  # a refused communicator may not tear down cleanly
+
+
+def _free_port():
+    import socket
+    s = socket.socket()
+    s.bind(("localhost", 0))
+    port = s.getsockname()[1]
+    s.close()
+    return port
+
+
+def _spawn_ranks(fn, args, nprocs, timeout):
+    """Run fn(rank, *args) in `nprocs` spawned processes; a rank that
+    raises or dies fails the phase, one still running after `timeout` s is
+    killed and fails it too."""
+    import torch.multiprocessing as mp
+    ctx = mp.start_processes(fn, args=args, nprocs=nprocs, join=False, start_method="spawn")
+    deadline = time.time() + timeout
+    try:
+        while not ctx.join(timeout=max(deadline - time.time(), 0.1)):
+            if time.time() > deadline:
+                raise AssertionError(f"{fn.__name__}: ranks still running after {timeout} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join()
+
+
+def ddp_parity(dev, cfg_fn=_ddp_cfg, rank_device="cuda:0", probe_nccl=True):
+    """Data parallelism on the one card: two ranks joined by gloo (NCCL
+    refuses two ranks on one device: `probe_nccl` asks it and quotes its
+    answer), each taking its 32 rows of the recipe's global batch 64 for
+    two float32 steps through the kernels, against one process at batch 64
+    on the same rows from the same seeded weights, at step_parity_f32's
+    tolerances. Both ranks share the card and the host: their step times
+    are no multi-card number."""
+    from pixflow_tpu_torch.models import init_momentum_from_online
+    from pixflow_tpu_torch.train import build_model, build_trainer, run_steps, synthetic_batch
+
+    on_card = dev.type == "cuda"
+    cfg = cfg_fn()
+    torch.backends.cudnn.deterministic = True
+    model = build_model(cfg, dev)
+    init_momentum_from_online(model)
+    before = {k: v.to("cpu", copy=True) for k, v in model.state_dict().items()}
+    trainer = build_trainer(cfg, dev, STEPS_PER_EPOCH, model=model)
+    one_s, one_states = [], []
+    for s in DDP_SEEDS:
+        batch = synthetic_batch(cfg, seed=s)
+        if on_card:
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        trainer = run_steps(cfg, [batch], 1, dev, trainer=trainer)
+        if on_card:
+            torch.cuda.synchronize()
+        one_s.append(time.perf_counter() - t)
+        one_states.append({k: v.to("cpu", copy=True)
+                           for k, v in trainer.state.model.state_dict().items()})
+    torch.backends.cudnn.deterministic = False
+    one_hist = trainer.history
+    params = [n for n, _ in model.named_parameters() if not n.split(".")[0].endswith("_k")]
+    buffers = [n for n, _ in model.named_buffers()]
+    del trainer, model
+    if on_card:
+        torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="pixflow_ddp_") as out_dir:
+        _spawn_ranks(_ddp_rank, (DDP_RANKS, _free_port(), out_dir, rank_device, cfg_fn),
+                     DDP_RANKS, timeout=300)
+        ranks = [torch.load(os.path.join(out_dir, f"rank{r}.pt"), weights_only=False)
+                 for r in range(DDP_RANKS)]
+        nccl = None
+        if probe_nccl:
+            try:
+                _spawn_ranks(_nccl_two_ranks_one_card, (_free_port(), out_dir), 2, timeout=120)
+                nccl = [open(os.path.join(out_dir, f"nccl{r}.txt")).read() or None
+                        for r in range(2)]
+            except AssertionError as e:
+                nccl = [f"no answer: {e}"]
+    ranks_s = time.perf_counter() - t0
+
+    r0, r1 = ranks
+    hist = r0["history"]
+    check(len(hist) == len(one_hist) == len(DDP_SEEDS), f"ddp steps {len(hist)}")
+    check(r0["history"] == r1["history"], "ddp: the ranks report different metrics")
+    check(all(torch.equal(a[k], b[k]) for a, b in zip(r0["states"], r1["states"]) for k in a),
+          "ddp: the ranks' weights differ")
+    loss_rel = [abs(m["loss"] - o["loss"]) / abs(o["loss"]) for m, o in zip(hist, one_hist)]
+    pos_equal = all(m[k] == o[k] for m, o in zip(hist, one_hist)
+                    for k in ("pos_num_1", "pos_num_2"))
+    # after each step: BatchNorm statistics, and the updates so far of every
+    # online parameter as one vector, of each weight matrix and of each
+    # 1-D tensor (BatchNorm scales and biases: sums over a whole batch of
+    # terms that cancel, whose rounding differs with the split: reported)
+    stats_err, upd_err, matrix_err, vector_err = [], [], [], []
+    flat = lambda st: torch.cat([(st[n] - before[n]).reshape(-1).double() for n in params])
+    for got, want in zip(r0["states"], one_states):
+        stats_err.append(max((rel(got[n], want[n]), n) for n in buffers))
+        upd_err.append(rel(flat(got), flat(want)))
+        per = {n: rel(got[n] - before[n], want[n] - before[n]) for n in params}
+        matrix_err.append(max((e, n) for n, e in per.items() if before[n].dim() > 1))
+        vector_err.append(max((e, n) for n, e in per.items() if before[n].dim() == 1))
+    per_step = len(DDP_SEEDS)
+    expect = {"pair_sums": 2 * per_step, "pair_sums_backward": 2 * per_step,
+              "point_sample": 0, "flow_up_points": 4 * per_step, "grid_sample": 0}
+    out = {"phase": "ddp_parity", "recipe": RECIPE, "ranks": DDP_RANKS,
+           "backend": "gloo (host-staged), two ranks sharing one card",
+           "global_batch": cfg.data.batch_size, "batch_per_rank": cfg.data.batch_size // 2,
+           "steps": per_step, "compute_dtype": "float32", "tf32": False,
+           "loss_ranks": [m["loss"] for m in hist], "loss_one_process": [
+               o["loss"] for o in one_hist], "loss_rel_diff": loss_rel,
+           "pos_num_ranks": [[m["pos_num_1"], m["pos_num_2"]] for m in hist],
+           "pos_num_one_process": [[o["pos_num_1"], o["pos_num_2"]] for o in one_hist],
+           "bn_stats_max_rel_err": stats_err, "param_update_rel_err": upd_err,
+           "weight_matrix_update_max_rel_err": matrix_err,
+           "vector_update_max_rel_err": vector_err,
+           "rank_step_ms": [[1e3 * x for x in r["step_s"]] for r in ranks],
+           "one_process_step_ms": [1e3 * x for x in one_s],
+           "grad_all_reduce_ms": [[1e3 * x for x in r["reduce_s"]] for r in ranks],
+           "grad_all_reduce_bytes": r0["grad_bytes"],
+           "rank_peak_mem_gb": [r["peak"] / 1e9 if r["peak"] else None for r in ranks],
+           "launches_per_rank": [r["launches"] for r in ranks],
+           "ranks_wall_s": ranks_s, "nccl_two_ranks_one_card": nccl}
+    if on_card:
+        out["card"] = nvidia_smi()
+    emit(out)
+    for r in ranks:
+        check(r["launches"] == expect, f"ddp rank launches {r['launches']}, expected {expect}")
+    check(all(math.isfinite(m["loss"]) for m in hist), "ddp: non-finite loss")
+    check(all(d <= 1e-4 for d in loss_rel), f"ddp loss differs by {loss_rel}")
+    check(pos_equal and hist[0]["pos_num"] > 0, "ddp: pos_num differs or is zero")
+    # The ranks split every batch sum, so rounding differs where sums
+    # cancel: BatchNorm's variance is E[x^2] - E[x]^2 (flax's formula, kept
+    # for parity), 1.5e-6 relative on the card where one process's
+    # statistics equal the kernel route's to the bit (step_parity_f32's
+    # 1e-6); the stem convolution's weight gradient on noise images sums
+    # ~800k terms that cancel by ~900x. So the statistics are held at 1e-5,
+    # the update of all online parameters as one vector at step_parity_f32's
+    # 1e-3, each weight matrix's at 2e-2; the 1-D tensors' are reported
+    # (projector.linear1.bias, ahead of a BatchNorm, has a gradient of zero
+    # up to rounding).
+    check(max(e for e, _ in stats_err) <= 1e-5, f"ddp BN statistics differ: {stats_err}")
+    check(max(upd_err) <= 1e-3, f"ddp parameter updates differ: {upd_err}")
+    check(max(e for e, _ in matrix_err) <= 2e-2, f"ddp weight updates differ: {matrix_err}")
+
+
 # --- phase 7: RAFT, the correlation lookup through K2's grid-sample entry ----
 
 RAFT_HW = (720, 1280)  # BDD100k's frames
@@ -1308,12 +1557,12 @@ def raft_train_run(dev, chairs_root):
 
 # --- phase 9: the CLI, training from files -----------------------------------
 
-def run_cli(args, timeout, module="pixflow_tpu_torch.main_pretrain"):
+def run_cli(args, timeout, module="pixflow_tpu_torch.main_pretrain", env=None):
     """`python -m MODULE ARGS` in its own process group, which is killed
     whole (forked decode workers too) on timeout; returns its stdout."""
     proc = subprocess.Popen([sys.executable, "-m", module, *args],
                             cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                            text=True, start_new_session=True)
+                            text=True, start_new_session=True, env=env)
     try:
         out, err = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
@@ -1452,6 +1701,9 @@ def cli_run(recipe_step_ms, raft_path, extra_args=(), keep_checkpoint=None):
             shutil.copyfile(os.path.join(out_dir, "current.pth"), keep_checkpoint)
         epoch2 = [r["time"] for r in recs if r["epoch"] == 2]
         step_ms = 1e3 * float(np.median(epoch2))
+        shutil.rmtree(out_dir)  # its checkpoints: room for the next runs
+        ddp_nccl = cli_ddp_nccl(data_dir, os.path.join(tmp, "out_ddp"), workers,
+                                recs[:2 * steps], step_ms, steps, extra_args)
         multispan = cli_multispan(data_dir, os.path.join(tmp, "out_multispan"), workers)
         precompute = cli_precompute(data_dir, os.path.join(tmp, "precomputed"), raft_path)
         live = cli_live_raft(data_dir, tmp, raft_path, workers)
@@ -1466,9 +1718,64 @@ def cli_run(recipe_step_ms, raft_path, extra_args=(), keep_checkpoint=None):
               "recipe_step_ms_median_synthetic": recipe_step_ms,
               "peak_mem_mb": max(r.get("peak_memory_mb", 0.0) for r in recs),
               "launches": counts, "first_resumed": first_resumed,
-              "losses": [r["loss"] for r in recs], "multispan": multispan,
+              "losses": [r["loss"] for r in recs], "ddp_nccl": ddp_nccl,
+              "multispan": multispan,
               "precompute_flows": precompute, "live_raft": live,
               "card": nvidia_smi()})
+
+
+def cli_ddp_nccl(data_dir, out_dir, workers, want, cli_step_ms, steps, extra_args=()):
+    """`ddp_nccl`: the recipe's CLI as rank 0 of a world of 1 on NCCL, under
+    torchrun's variables (`main_pretrain_multihost`): one epoch with a
+    save, then `--auto-resume` for a second, against the `cli` phase's
+    first two epochs on the same corpus and seed (`want`). Every BatchNorm
+    statistic and the gradients cross NCCL's all-reduce (of one rank).
+    The first steps' losses are the one-process run's to the bit; later
+    ones part as cuDNN's autotuned bf16 kernels allow, so they are held at
+    1e-3 and the bit-equal ones counted; the geometry's `pos_num` and the
+    schedule's `lr` are exact."""
+    args = ["--recipe", RECIPE, "--data-dir", data_dir, "--output-dir", out_dir,
+            "--print-freq", "1", "--save-freq", "1", "--num-workers", str(workers),
+            "--worker-mode", "process", "--debug-epochs", "1", *extra_args]
+    runs_s = []
+    for extra in ([], ["--auto-resume"]):
+        env = dict(os.environ, MASTER_ADDR="localhost", MASTER_PORT=str(_free_port()),
+                   RANK="0", WORLD_SIZE="1", LOCAL_RANK="0")
+        t = time.perf_counter()
+        run_cli([*args, *extra], timeout=420, module="pixflow_tpu_torch.main_pretrain_multihost",
+                env=env)
+        runs_s.append(time.perf_counter() - t)
+    recs, counts = read_cli_run(out_dir)
+    with open(os.path.join(out_dir, "log.txt")) as f:
+        log = f.read()
+    check(log.count("rank 0 of 1 (nccl)") == 2, "ddp_nccl: not a group of one on NCCL")
+    check([r["step"] for r in recs] == [w["step"] for w in want] == list(range(1, 2 * steps + 1)),
+          f"ddp_nccl steps {[r['step'] for r in recs]}")
+    for r, w in zip(recs, want):
+        check(r["lr"] == w["lr"] and r["pos_num"] == w["pos_num"],
+              f"ddp_nccl step {r['step']}: lr/pos_num {r['lr']}/{r['pos_num']}, "
+              f"one process {w['lr']}/{w['pos_num']}")
+    # bf16 autocast, cuDNN autotuned in each process: the losses part after
+    # a few steps (3.0e-5 and 7.1e-5 at most in two H100 runs); a loss is a
+    # sum of cosines within [-4, 4], held at 1e-3
+    loss_diff = [abs(r["loss"] - w["loss"]) for r, w in zip(recs, want)]
+    check(max(loss_diff) <= 1e-3, f"ddp_nccl losses differ by {loss_diff}")
+    expect = [{"pair_sums": 2 * steps, "pair_sums_backward": 2 * steps, "point_sample": 0,
+               "flow_up_points": 4 * steps, "grid_sample": 0}] * 2
+    check(counts == expect, f"ddp_nccl launches {counts}, expected {expect}")
+    # like for like: the first epoch of a fresh process in both runs, after
+    # its first step (cuDNN's search, during which the loader fills ahead);
+    # the `cli` phase's epoch-2 median runs in the same process as epoch 1
+    first = lambda rs: [1e3 * r["time"] for r in rs if 1 < r["step"] <= steps]
+    return {"launcher": "main_pretrain_multihost, WORLD_SIZE=1", "backend": "nccl",
+            "runs_s": runs_s, "losses": [r["loss"] for r in recs],
+            "losses_one_process": [w["loss"] for w in want], "loss_abs_diff": loss_diff,
+            "loss_bit_equal_steps": sum(r["loss"] == w["loss"] for r, w in zip(recs, want)),
+            "step_ms": [1e3 * r["time"] for r in recs],
+            "step_ms_one_process": [1e3 * w["time"] for w in want],
+            "epoch1_step_ms_median_after_first": float(np.median(first(recs))),
+            "epoch1_step_ms_median_after_first_one_process": float(np.median(first(want))),
+            "cli_step_ms_median_epoch2": cli_step_ms, "launches": counts}
 
 
 def cli_multispan(data_dir, out_dir, workers):
@@ -1753,6 +2060,7 @@ def main():
     multispan_parity(dev)
     multispan_run(dev)
     torch.cuda.empty_cache()
+    ddp_parity(dev)
     lookup = compare_raft_lookup(dev)
     raft_parity(dev)
     raft_run(dev)

@@ -8,12 +8,13 @@ and live RAFT (`flow.use_flow` without `use_flow_file`:
 `flow_model/small/flow_bs/raft_iters`; lazy or materialising flow_up,
 composition at the stored resolution, multi-span), `model.*`, `optim.*`
 and `runtime.*`, where `checkpoint_backend="msgpack"` names the
-single-file backend (written with `torch.save` here). Settings whose path
-is not ported raise NotImplementedError (`train/driver.py:check_ported`):
+single-file backend (written with `torch.save` here, by rank 0).
+`runtime.mesh_shape` is the number of ranks, one process a card, and must
+equal the world size when given; `runtime.preempt_vote_steps` is how often
+the ranks vote on a SIGTERM. Settings whose path is not ported raise
+NotImplementedError (`train/driver.py:check_ported`):
 `data.loader_backend="grain"`, a bfloat16 live RAFT (`raft_dtype`,
-`raft_corr_dtype`), `checkpoint_backend="orbax"`, `mesh_shape` > 1,
-`wandb` and `debug`;
-`runtime.preempt_vote_steps` has no use in one process."""
+`raft_corr_dtype`), `checkpoint_backend="orbax"`, `wandb` and `debug`."""
 
 from __future__ import annotations
 

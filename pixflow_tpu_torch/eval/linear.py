@@ -8,16 +8,23 @@ with momentum SGD and cross entropy. The backbone's parameters take no
 gradient, no weight decay and no momentum, but its BatchNorm runs in
 training mode over the batch and updates its running statistics, like the
 reference's never-eval'd backbone; the eval step normalises with the
-running statistics."""
+running statistics.
+
+Data parallel (`group`): the backbone's BatchNorms average their
+statistics over the ranks and the fc gradients are averaged over them
+before SGD (the cross entropy is a per-sample mean), so N ranks take the
+step one process takes on the global batch."""
 
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
 
 from ..models import make_resnet
+from ..parallel.multihost import all_reduce_sum_
 from ..models.resnet import ResNet
 from ..train.lars import LarsSgd, sgd
 from ..train.state import TrainState
@@ -39,13 +46,13 @@ def linear_optimizer(lr_schedule, momentum: float = 0.9, weight_decay: float = 0
 
 
 def build_linear_state(arch: str, num_classes: int, lr_schedule, momentum: float = 0.9,
-                       weight_decay: float = 0.0, seed: int = 0, device=None):
+                       weight_decay: float = 0.0, seed: int = 0, device=None, group=None):
     """(optimizer, TrainState): a seeded ResNet with the `reduce` head on
-    `device`, its backbone's parameters frozen (requires_grad off: the step
-    computes fc's gradient alone), and `linear_optimizer` over it with its
-    state."""
+    `device` (its BatchNorms over `group`'s ranks when given), its
+    backbone's parameters frozen (requires_grad off: the step computes
+    fc's gradient alone), and `linear_optimizer` over it with its state."""
     model = make_resnet(arch, head_type="reduce", low_dim=num_classes,
-                        generator=torch.Generator().manual_seed(seed))
+                        generator=torch.Generator().manual_seed(seed), group=group)
     model = model.to(device, memory_format=torch.channels_last)
     for name, p in model.named_parameters():
         p.requires_grad_(name.startswith(PROBE))
@@ -75,10 +82,11 @@ def load_pretrained_encoder(state: TrainState, encoder_sd: dict) -> TrainState:
     return state
 
 
-def make_linear_train_step(tx: LarsSgd, lr_schedule, autocast_dtype=None):
+def make_linear_train_step(tx: LarsSgd, lr_schedule, autocast_dtype=None, group=None):
     """One probe step on TrainState (updated in place): BN in training mode
-    (its statistics move), cross entropy, SGD on fc. batch: image
-    [B, H, W, 3] float, label [B] int64. Metrics: loss, acc1, and lr, the
+    (its statistics move), cross entropy, SGD on fc (its gradients averaged
+    over `group`'s ranks when given). batch: image [B, H, W, 3] float,
+    label [B] int64. Metrics: this rank's loss and acc1, and lr, the
     schedule at the step's count, as 0-d tensors or floats."""
 
     def step(state: TrainState, batch: dict):
@@ -91,6 +99,9 @@ def make_linear_train_step(tx: LarsSgd, lr_schedule, autocast_dtype=None):
         loss = F.cross_entropy(logits, batch["label"])
         names = [n for n in params if n not in tx.frozen]
         grads = torch.autograd.grad(loss, [params[n] for n in names])
+        if group is not None:
+            all_reduce_sum_(grads, group)
+            torch._foreach_div_(list(grads), dist.get_world_size(group))
         tx.step_(state.opt_state, params, dict(zip(names, grads)))
         acc1 = (logits.argmax(-1) == batch["label"]).float().mean() * 100.0
         metrics = {"loss": loss.detach(), "acc1": acc1, "lr": lr_schedule(state.step)}

@@ -8,8 +8,12 @@
 `--pretrained-model` is a pretraining checkpoint of the port
 (`ckpt_epoch_N.pth`, `current.pth`) or a published one. One addition:
 `--device` (default `cuda`; `--device cpu` runs on the CPU); a missing
-card is an error. `--mesh-shape` > 1 raises NotImplementedError (ROADMAP
-item 4)."""
+card is an error.
+
+Data parallel, one process a card: `torchrun --nproc_per_node N -m
+pixflow_tpu_torch.main_linear ...`; `--total-batch-size` is the global
+batch and `--mesh-shape`, when given, must equal N. The validation metrics
+are global on every rank."""
 
 from __future__ import annotations
 
@@ -92,7 +96,12 @@ def parse_args(argv: Optional[Sequence[str]] = None):
 def main(argv: Optional[Sequence[str]] = None):
     cfg, pretrained, branch, device = parse_args(argv)
     from .eval.driver import linear_eval
-    return linear_eval(cfg, pretrained, branch, device)
+    from .parallel import init_distributed, shutdown
+    ctx, dev = init_distributed(device, mesh_shape=cfg.runtime.mesh_shape)
+    try:
+        return linear_eval(cfg, pretrained, branch, dev)
+    finally:
+        shutdown(ctx)
 
 
 if __name__ == "__main__":

@@ -10,7 +10,12 @@ command line overrides the recipe's value, a flag left out keeps it. One
 addition: `--device` (default `cuda`; `--device cpu` runs on the CPU, as
 the tests do); a missing card is an error, never a fall-back to the CPU.
 Flags whose path the port does not have yet raise NotImplementedError
-naming their ROADMAP.md item (`train/driver.py:check_ported`)."""
+naming their ROADMAP.md item (`train/driver.py:check_ported`).
+
+Data parallel, one process a card: start N ranks with
+`torchrun --nproc_per_node N -m pixflow_tpu_torch.main_pretrain_multihost
+...` (or this module with `--multihost`); `--batch-size` is per rank and
+`--mesh-shape`, when given, must equal N (`parallel/dist.py`)."""
 
 from __future__ import annotations
 
@@ -175,10 +180,11 @@ def parse_args(argv: Optional[Sequence[str]] = None):
                    help="bf16 autocast over f32 weights replaces apex AMP O1; "
                         "float32 = O0")
     p.add_argument("--mesh-shape", type=int, default=None,
-                   help="number of devices in the data mesh (the port runs "
-                        "on one; more is not ported)")
+                   help="number of ranks in the data mesh, one process a card; "
+                        "must equal torchrun's WORLD_SIZE")
     p.add_argument("--multihost", action="store_true",
-                   help="multi-host training (not ported)")
+                   help="join the process group from torchrun's variables "
+                        "(MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE, LOCAL_RANK)")
     p.add_argument("--device", type=str, default="cuda",
                    help="torch device: cuda (default) or cpu")
 
@@ -264,13 +270,19 @@ def parse_args(argv: Optional[Sequence[str]] = None):
 
 
 def main(argv: Optional[Sequence[str]] = None):
-    from .train.driver import train
+    """Train; with torchrun's variables set (required by `--multihost`),
+    as one rank of the group they name."""
+    from .parallel import init_distributed, shutdown
+    from .train.driver import check_ported, train
 
     cfg, device, multihost = parse_args(argv)
-    if multihost:
-        raise NotImplementedError(
-            "--multihost is not ported (ROADMAP.md, Queue 1 item 4)")
-    return train(cfg, device)
+    check_ported(cfg)
+    ctx, dev = init_distributed(device, mesh_shape=cfg.runtime.mesh_shape,
+                                require_env=multihost)
+    try:
+        return train(cfg, dev)
+    finally:
+        shutdown(ctx)
 
 
 if __name__ == "__main__":

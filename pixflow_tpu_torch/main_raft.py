@@ -19,7 +19,14 @@ CLI and `precompute_flows --flow-model` read); `raft_state.pth`, the full
 state (weights, Adam moments, counts) for `--resume` / `--resume auto`;
 `raft_metrics.jsonl`; with `--validate`, `raft_val.jsonl`. The run's last
 line counts the launches of the correlation lookup's kernels (K2's grid
-entry and its backward)."""
+entry and its backward).
+
+Data parallel, one process a card: `torchrun --nproc_per_node N -m
+pixflow_tpu_torch.main_raft ...`. `--batch-size` is the global batch and
+must divide by N: every rank draws the same indices and builds its rows
+[r*B/N, (r+1)*B/N) of each batch, with the same per-sample seeds, so the
+batches are one process's; the gradients are averaged before the clip.
+Rank 0 alone writes files, validates and writes submissions."""
 
 from __future__ import annotations
 
@@ -79,11 +86,12 @@ def parse_args(argv: Optional[Sequence[str]] = None):
 
 
 def sample_batch(dataset, rng: np.random.Generator, step: int, batch_size: int, seed: int,
-                 pool: Optional[ThreadPoolExecutor] = None) -> dict:
+                 pool: Optional[ThreadPoolExecutor] = None, rows: slice = slice(None)) -> dict:
     """Step `step`'s batch (img1, img2, flow, valid as float32 arrays):
     `batch_size` indices drawn from `rng`, sample j augmented by
     `random.Random(seed * 1_000_003 + (step - 1) * batch_size + j)`, a seed
-    unique to (step, sample); `pool` builds the samples in threads."""
+    unique to (step, sample); `pool` builds the samples in threads. `rows`
+    builds only those rows of the batch (a rank's share)."""
     idx = rng.integers(0, len(dataset), batch_size)
 
     def build(ji):
@@ -91,8 +99,9 @@ def sample_batch(dataset, rng: np.random.Generator, step: int, batch_size: int, 
         r = random.Random(seed * 1_000_003 + (step - 1) * batch_size + j)
         return dataset.__getitem__(int(i), r)
 
-    items = (list(pool.map(build, enumerate(idx))) if pool is not None
-             else [build(ji) for ji in enumerate(idx)])
+    todo = list(enumerate(idx))[rows]
+    items = (list(pool.map(build, todo)) if pool is not None
+             else [build(ji) for ji in todo])
     return {k: np.stack([s[n] for s in items]).astype(np.float32)
             for n, k in enumerate(("img1", "img2", "flow", "valid"))}
 
@@ -105,16 +114,32 @@ def _save_atomic(obj, path: str) -> None:
 
 def main(argv: Optional[Sequence[str]] = None):
     a = parse_args(argv)
+    from .parallel import init_distributed, shutdown
+
+    ctx, dev = init_distributed(a.device)
+    try:
+        _main(a, ctx, dev)
+    finally:
+        shutdown(ctx)
+
+
+def _main(a, ctx, dev):
     from .data.raft_datasets import fetch_stage_dataset
-    from .device import resolve_device
     from .models.raft import RAFT, load_raft
     from .ops.kernels import RAFT_TRAIN_KERNELS
+    from .parallel import broadcast_module_, use_device
     from .train.driver import to_device
     from .train.raft_trainer import (AdamWState, make_raft_train_step,
                                      raft_optimizer, raft_train_state)
     from .utils.metrics_writer import MetricsWriter
 
-    dev = resolve_device(a.device)
+    if a.batch_size % ctx.world_size:
+        raise ValueError(f"--batch-size {a.batch_size} does not divide over "
+                         f"{ctx.world_size} ranks")
+    local = a.batch_size // ctx.world_size
+    rows = slice(ctx.rank * local, (ctx.rank + 1) * local)
+    say = print if ctx.is_main else (lambda *_, **__: None)
+    use_device(dev)
     os.makedirs(a.output_dir, exist_ok=True)
     crop = tuple(a.crop_size) if a.crop_size else STAGE_CROPS[a.stage]
     roots = {"chairs": a.chairs_root, "things": a.things_root, "sintel": a.sintel_root,
@@ -124,7 +149,7 @@ def main(argv: Optional[Sequence[str]] = None):
         dataset = fetch_stage_dataset(a.stage, roots, crop)
         if len(dataset) == 0:
             raise ValueError(f"no samples for stage {a.stage} under {roots}")
-        print(f"training with {len(dataset)} image pairs, crop {crop}")
+        say(f"training with {len(dataset)} image pairs, crop {crop}")
 
     if a.restore:
         model = load_raft(a.restore, small=a.small)
@@ -137,7 +162,7 @@ def main(argv: Optional[Sequence[str]] = None):
 
     schedule, tx = raft_optimizer(a.lr, a.num_steps, a.weight_decay, a.clip_norm)
     state = raft_train_state(model, tx)
-    step_fn = make_raft_train_step(tx, iters=a.iters, gamma=a.gamma)
+    step_fn = make_raft_train_step(tx, iters=a.iters, gamma=a.gamma, group=ctx.group)
 
     # full-state resume (weights + Adam moments + step): a warm restart of a
     # long fine-tune must not warm up again from lr/25 with fresh moments
@@ -152,9 +177,12 @@ def main(argv: Optional[Sequence[str]] = None):
                              "this model's")
         state.opt_state = AdamWState(int(payload["count"]), payload["mu"], payload["nu"])
         state.step = start_step = int(payload["step"])
-        print(f"resumed full train state from {resume} at step {start_step}")
+        say(f"resumed full train state from {resume} at step {start_step}")
     elif a.resume and a.resume != "auto":
         raise FileNotFoundError(a.resume)
+    # the same seed and files give every rank the same weights; rank 0's
+    # copy makes sure of it (Adam's moments follow from equal gradients)
+    broadcast_module_(model, ctx.group)
 
     def save_state():
         _save_atomic({"model": model.state_dict(), "mu": state.opt_state.mu,
@@ -168,10 +196,12 @@ def main(argv: Optional[Sequence[str]] = None):
         m = validate_stage(model, a.validate, roots, max_samples=a.val_max_samples)
         m = {k: float(v) for k, v in m.items()}
         m.update(step=step, split=a.validate)
-        print("validation", json.dumps(m))
+        say("validation", json.dumps(m))
         with open(os.path.join(a.output_dir, "raft_val.jsonl"), "a") as f:
             f.write(json.dumps(m) + "\n")
 
+    if not ctx.is_main and (a.submit or a.num_steps <= 0):
+        return  # rank 0 writes the submission or validates
     if a.submit:
         from .eval.flow_eval import create_kitti_submission, create_sintel_submission
         out = a.submit_out or os.path.join(a.output_dir, f"{a.submit}_submission")
@@ -179,7 +209,7 @@ def main(argv: Optional[Sequence[str]] = None):
             create_sintel_submission(model, roots["sintel"], out)
         else:
             create_kitti_submission(model, roots["kitti"], out)
-        print(f"wrote {a.submit} submission to {out}")
+        say(f"wrote {a.submit} submission to {out}")
         return
 
     if a.num_steps <= 0:  # validation only
@@ -189,9 +219,10 @@ def main(argv: Optional[Sequence[str]] = None):
     sample_pool = ThreadPoolExecutor(a.num_workers) if a.num_workers > 1 else None
 
     def next_batch(step):
-        return sample_batch(dataset, rng, step, a.batch_size, a.seed, sample_pool)
+        return sample_batch(dataset, rng, step, a.batch_size, a.seed, sample_pool, rows)
 
-    writer = MetricsWriter(a.output_dir, filename="raft_metrics.jsonl")
+    writer = (MetricsWriter(a.output_dir, filename="raft_metrics.jsonl")
+              if ctx.is_main else None)
     # one batch ahead on one thread: host assembly overlaps the device step
     # and the index stream stays in step order; a resumed run first skips
     # the draws its taken steps consumed
@@ -212,22 +243,26 @@ def main(argv: Optional[Sequence[str]] = None):
                 # this update took schedule(step - 1): the count before it
                 m.update(lr=schedule(step - 1),
                          sec_per_step=(time.time() - t0) / (step - start_step))
-                print(("step {step}: loss {loss:.4f} epe {epe:.3f} 1px {1px:.3f} "
-                       "3px {3px:.3f} 5px {5px:.3f}").format(step=step, **m), flush=True)
-                writer.write(step, m)
+                say(("step {step}: loss {loss:.4f} epe {epe:.3f} 1px {1px:.3f} "
+                     "3px {3px:.3f} 5px {5px:.3f}").format(step=step, **m), flush=True)
+                if writer is not None:
+                    writer.write(step, m)
             if step % a.save_freq == 0 or step == a.num_steps:
-                path = os.path.join(a.output_dir, f"raft_{a.stage}_{step}.pth")
-                _save_atomic(model.state_dict(), path)
-                save_state()
-                print(f"saved {path} (+ resumable {state_path})", flush=True)
-                run_validation(step)
+                if ctx.is_main:  # the others wait for the files at the barrier
+                    path = os.path.join(a.output_dir, f"raft_{a.stage}_{step}.pth")
+                    _save_atomic(model.state_dict(), path)
+                    save_state()
+                    say(f"saved {path} (+ resumable {state_path})", flush=True)
+                    run_validation(step)
+                ctx.barrier()
     finally:
         prefetch.shutdown(wait=False, cancel_futures=True)
         if sample_pool is not None:
             sample_pool.shutdown(wait=False, cancel_futures=True)
-        writer.close()
+        if writer is not None:
+            writer.close()
     launches = {k.__name__: k.launches - launches0[k.__name__] for k in RAFT_TRAIN_KERNELS}
-    print(f"kernel launches: {json.dumps(launches)}", flush=True)
+    say(f"kernel launches: {json.dumps(launches)}", flush=True)
 
 
 if __name__ == "__main__":

@@ -31,10 +31,10 @@ def dense(cin: int, cout: int, generator: Optional[torch.Generator]) -> nn.Linea
 class MLP2d(nn.Module):
     def __init__(self, in_dim: int, inner_dim: int = 4096, out_dim: int = 256,
                  view_groups: int = 1, bn_momentum: float = 0.9,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, group=None):
         super().__init__()
         self.linear1 = dense(in_dim, inner_dim, generator)
-        self.bn1 = ViewBatchNorm(inner_dim, view_groups, bn_momentum)
+        self.bn1 = ViewBatchNorm(inner_dim, view_groups, bn_momentum, group=group)
         self.linear2 = dense(inner_dim, out_dim, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

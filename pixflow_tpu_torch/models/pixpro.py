@@ -71,7 +71,7 @@ class PixPro(nn.Module):
                  proj_inner_dim: int = 4096, proj_out_dim: int = 256,
                  dtype: torch.dtype = torch.float32, bn_momentum: float = 0.9,
                  fuse_views: bool = False,
-                 generator: Optional[torch.Generator] = None):
+                 generator: Optional[torch.Generator] = None, group=None):
         super().__init__()
         if pixpro_ins_loss_weight > 0.0:
             raise NotImplementedError("the instance-loss heads are not ported yet "
@@ -82,8 +82,10 @@ class PixPro(nn.Module):
         self.dtype = dtype
         # both views as ONE 2B pass per branch, BatchNorm statistics per view
         self.fuse_views = fuse_views
+        # `group`: every BatchNorm of both branches averages its statistics
+        # over the ranks (the JAX modules' `axis_name`)
         common = dict(view_groups=2 if fuse_views else 1, bn_momentum=bn_momentum,
-                      generator=generator)
+                      generator=generator, group=group)
 
         self.encoder = make_resnet(arch, **common)
         feat = self.encoder.feature_dim

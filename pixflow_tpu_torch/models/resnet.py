@@ -11,7 +11,8 @@ the average through `fc1`, ReLU and `fc2`, and `conv_head` c5 through a
 1x1 `fc1`, `bn2`, ReLU, a 7x7 average pool (no padding) and `fc2`, whose
 width assumes the 7x7 c5 of a 224 px input. Inside, convolutions take NCHW tensors in
 `channels_last` memory (the same bytes as NHWC) and every BatchNorm is a
-`ViewBatchNorm` over the channel-last view. Module names are the
+`ViewBatchNorm` over the channel-last view, given the process group when
+the batch is split over ranks (`group`). Module names are the
 reference's torch names (`conv1`, `bn1`, `layer1.0.conv2`,
 `layer2.0.downsample.0`), so `convert.flax_to_torch` and the JAX package's
 `torch_pixpro_to_flax` map the weights."""
@@ -52,10 +53,10 @@ class ConvBN(nn.Module):
     """conv -> BN, named `conv`/`bn` (the deep stem's cells)."""
 
     def __init__(self, cin, cout, k, stride=1, view_groups=1, bn_momentum=0.9,
-                 generator=None):
+                 generator=None, group=None):
         super().__init__()
         self.conv = _conv(cin, cout, k, stride, generator=generator)
-        self.bn = ViewBatchNorm(cout, view_groups, bn_momentum)
+        self.bn = ViewBatchNorm(cout, view_groups, bn_momentum, group=group)
 
     def forward(self, x):
         return F.relu(bn_nchw(self.bn, self.conv(x)))
@@ -65,10 +66,10 @@ class BasicBlock(nn.Module):
     expansion = 1
 
     def __init__(self, inplanes, planes, stride=1, dilation=1, avg_down=False,
-                 view_groups=1, bn_momentum=0.9, generator=None, **_):
+                 view_groups=1, bn_momentum=0.9, generator=None, group=None, **_):
         super().__init__()
         bn = lambda c, zero=False: ViewBatchNorm(c, view_groups, bn_momentum,
-                                                 zero_init=zero)
+                                                 zero_init=zero, group=group)
         # like the JAX package, basic blocks take no dilation
         self.conv1 = _conv(inplanes, planes, 3, stride, generator=generator)
         self.bn1 = bn(planes)
@@ -77,7 +78,7 @@ class BasicBlock(nn.Module):
         self.avg_down = avg_down and stride != 1
         self.stride = stride
         self.downsample = _shortcut(inplanes, planes, stride, self.avg_down,
-                                    view_groups, bn_momentum, generator)
+                                    view_groups, bn_momentum, generator, group)
 
     def forward(self, x):
         y = F.relu(bn_nchw(self.bn1, self.conv1(x)))
@@ -90,10 +91,10 @@ class Bottleneck(nn.Module):
 
     def __init__(self, inplanes, planes, stride=1, dilation=1, avg_down=False,
                  view_groups=1, bn_momentum=0.9, generator=None, groups=1,
-                 base_width=64):
+                 base_width=64, group=None):
         super().__init__()
         bn = lambda c, zero=False: ViewBatchNorm(c, view_groups, bn_momentum,
-                                                 zero_init=zero)
+                                                 zero_init=zero, group=group)
         width = int(planes * (base_width / 64.0)) * groups
         out_ch = planes * self.expansion
         self.conv1 = _conv(inplanes, width, 1, generator=generator)
@@ -105,7 +106,7 @@ class Bottleneck(nn.Module):
         self.avg_down = avg_down and stride != 1
         self.stride = stride
         self.downsample = _shortcut(inplanes, out_ch, stride, self.avg_down,
-                                    view_groups, bn_momentum, generator)
+                                    view_groups, bn_momentum, generator, group)
 
     def forward(self, x):
         y = F.relu(bn_nchw(self.bn1, self.conv1(x)))
@@ -115,14 +116,14 @@ class Bottleneck(nn.Module):
 
 
 def _shortcut(inplanes, out_ch, stride, avg_down, view_groups, bn_momentum,
-              generator):
+              generator, group):
     """Projection shortcut `downsample` = (conv 1x1, BN), or None. With
     avg_down the stride moves to an average pool ahead of it."""
     if stride == 1 and inplanes == out_ch:
         return None
     conv_stride = 1 if avg_down else stride
     return nn.Sequential(_conv(inplanes, out_ch, 1, conv_stride, generator=generator),
-                         ViewBatchNorm(out_ch, view_groups, bn_momentum))
+                         ViewBatchNorm(out_ch, view_groups, bn_momentum, group=group))
 
 
 def _apply_shortcut(block, x):
@@ -157,13 +158,13 @@ class ResNet(nn.Module):
                  avg_down: bool = False, deep_stem: bool = False,
                  layer4_dilation: int = 1, bn_momentum: float = 0.9,
                  view_groups: int = 1, generator: Optional[torch.Generator] = None,
-                 head_type: str = "early_return", low_dim: int = 128):
+                 head_type: str = "early_return", low_dim: int = 128, group=None):
         super().__init__()
         if head_type not in HEAD_TYPES:
             raise NotImplementedError(f"head_type {head_type!r}; choose from {HEAD_TYPES}")
         self.head_type = head_type
         common = dict(view_groups=view_groups, bn_momentum=bn_momentum,
-                      generator=generator)
+                      generator=generator, group=group)
         base = 64 * width
         self.deep_stem = deep_stem
         if deep_stem:
@@ -173,7 +174,7 @@ class ResNet(nn.Module):
         else:
             self.conv1 = nn.Conv2d(3, base, 7, stride=2, padding=3, bias=False)
             he_fan_out_(self.conv1, generator)
-        self.bn1 = ViewBatchNorm(base, view_groups, bn_momentum)
+        self.bn1 = ViewBatchNorm(base, view_groups, bn_momentum, group=group)
 
         block_cls = Bottleneck if block == "bottleneck" else BasicBlock
         strides = (1, 2, 2, 2 if layer4_dilation == 1 else 1)
@@ -197,7 +198,7 @@ class ResNet(nn.Module):
             self.fc2 = _dense(mid, low_dim, generator)
         elif head_type == "conv_head":
             self.fc1 = _conv(mid, mid, 1, generator=generator)
-            self.bn2 = ViewBatchNorm(mid, view_groups, bn_momentum)
+            self.bn2 = ViewBatchNorm(mid, view_groups, bn_momentum, group=group)
             self.fc2 = _dense(mid, low_dim, generator)
 
     def forward(self, im: torch.Tensor):

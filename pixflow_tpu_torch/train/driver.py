@@ -1,10 +1,19 @@
-"""Pretraining driver: config -> loader -> model -> optimizer -> epochs on
-one device. The port of `pixflow_tpu/train/driver.py` for one process:
-`train` builds the loader from the config, the PixPro model and LARS/SGD
-with the loader's steps per epoch, then runs the epoch loop with
-auto-resume, step-exact preemption saves, checkpoints and per-step metric
-logging. `build_trainer`/`run_steps` drive the same step on batches the
-caller gives, such as `synthetic_batch`.
+"""Pretraining driver: config -> loader -> model -> optimizer -> epochs.
+The port of `pixflow_tpu/train/driver.py`: `train` builds the loader from
+the config, the PixPro model and LARS/SGD with the loader's steps per
+epoch, then runs the epoch loop with auto-resume, step-exact preemption
+saves, checkpoints and per-step metric logging. `build_trainer`/`run_steps`
+drive the same step on batches the caller gives, such as `synthetic_batch`.
+
+Data parallel (`parallel/`, one process a card, torchrun's variables or a
+group the caller initialised): the global batch is `batch_size x world`
+and rank r's loader feeds its rows of it; the learning rate and the EMA
+ramp follow the global batch and its steps per epoch; BatchNorm statistics,
+gradients and metrics are reduced over the ranks in the step. Rank 0 alone
+writes `config.json`, the metrics and the checkpoints (then a barrier);
+every rank logs to its own file and reads a resume. The SIGTERM flag is a
+vote of all ranks every `preempt_vote_steps` batches, at the same indices,
+and once at the end of an epoch.
 
 Logged steps (every `runtime.print_freq`, and the last of an epoch) run the
 variant of the step with the strided mask-ratio telemetry and read the
@@ -33,10 +42,12 @@ from ..data.datasets import frame_stats
 from ..data.transforms import get_transform, sample_photometric_params
 from ..device import resolve_device
 from ..models import PixPro
+from ..models.norm import use_group
 from ..ops.kernels import KERNELS
-from ..utils import (AverageMeter, latest_checkpoint, load_checkpoint,
-                     save_checkpoint, setup_logger)
-from ..utils.checkpoint import load_published
+from ..parallel import (Dist, any_process, broadcast_module_, check_mesh_shape,
+                        host_mean, init_distributed, use_device, world_size)
+from ..utils import AverageMeter, latest_checkpoint, load_checkpoint, setup_logger
+from ..utils.checkpoint import load_published, save_checkpoint_rank0
 from ..utils.metrics_writer import MetricsWriter
 from .lars import LarsSgd, frozen_momentum_branch_names, lars_sgd, sgd
 from .schedule import make_lr_schedule, scale_lr
@@ -50,12 +61,13 @@ def multi_span(cfg: PretrainConfig) -> bool:
     return cfg.flow.use_flow_frames and cfg.flow.use_flow and cfg.data.n_frames > 2
 
 
-def build_model(cfg: PretrainConfig, device=None) -> PixPro:
+def build_model(cfg: PretrainConfig, device=None, group=None) -> PixPro:
     """PixPro at the config's widths, seeded from `runtime.seed`, on the
     device (`cuda` unless told otherwise), convolution weights in
-    channels_last memory. Multi-span keeps the views unfused, as the JAX
-    package's driver does (B*F images a call already fill the device);
-    fusing there is supported and exact (`PixPro.multi_span_loss`)."""
+    channels_last memory; its BatchNorms average their statistics over
+    `group`'s ranks when one is given. Multi-span keeps the views unfused,
+    as the JAX package's driver does (B*F images a call already fill the
+    device); fusing there is supported and exact (`PixPro.multi_span_loss`)."""
     dev = resolve_device(device)
     dtype = torch.bfloat16 if cfg.runtime.compute_dtype == "bfloat16" else torch.float32
     gen = torch.Generator().manual_seed(cfg.runtime.seed)
@@ -70,6 +82,7 @@ def build_model(cfg: PretrainConfig, device=None) -> PixPro:
         dtype=dtype,
         fuse_views=cfg.model.fuse_views and not multi_span(cfg),
         generator=gen,
+        group=group,
     )
     return model.to(dev, memory_format=torch.channels_last)
 
@@ -134,19 +147,24 @@ def make_raft_fn(cfg: PretrainConfig, device=None, plain_kernels: bool = False):
 
 def build_trainer(cfg: PretrainConfig, device=None, steps_per_epoch: int = 1,
                   model: Optional[PixPro] = None,
-                  plain_kernels: bool = False) -> Trainer:
+                  plain_kernels: bool = False, ctx: Dist = Dist()) -> Trainer:
     """Model (or the one given, e.g. with carried-over weights), optimizer,
     state and both step variants. `steps_per_epoch` sets the LR and EMA
     schedules' length, as the loader's length does in the JAX driver. A
-    flow config without flow files gets live RAFT (`make_raft_fn`)."""
+    flow config without flow files gets live RAFT (`make_raft_fn`). With a
+    group in `ctx`, the steps reduce over its ranks (a model given must
+    have been built with the same group) and the learning rate scales with
+    the global batch, `batch_size x world`."""
     if model is None:
-        model = build_model(cfg, device)
+        model = build_model(cfg, device, ctx.group)
         copy_online = True
     else:
+        if ctx.group is not None:
+            use_group(model, ctx.group)
         copy_online = False
-    batch_size = cfg.data.batch_size  # one device: global batch = per replica
+    global_batch = cfg.data.batch_size * ctx.world_size
     lr_schedule = make_lr_schedule(
-        cfg.optim.lr_scheduler, scale_lr(cfg.optim.base_lr, batch_size),
+        cfg.optim.lr_scheduler, scale_lr(cfg.optim.base_lr, global_batch),
         cfg.optim.epochs, cfg.optim.warmup_epoch, steps_per_epoch,
         cfg.optim.warmup_multiplier, cfg.optim.lr_decay_epochs,
         cfg.optim.lr_decay_rate)
@@ -168,7 +186,7 @@ def build_trainer(cfg: PretrainConfig, device=None, steps_per_epoch: int = 1,
               use_flow_frames=multi_span(cfg),
               alpha1=cfg.flow.alpha1, alpha2=cfg.flow.alpha2,
               device_aug=cfg.data.device_aug, plain_kernels=plain_kernels,
-              raft_fn=raft_fn)
+              raft_fn=raft_fn, group=ctx.group)
     return Trainer(state, make_train_step(tx, **kw),
                    make_train_step(tx, flow_telemetry=False, **kw),
                    max(cfg.runtime.print_freq, 1))
@@ -316,23 +334,26 @@ def synthetic_batch(cfg: PretrainConfig, seed: int,
 def check_ported(cfg: PretrainConfig) -> None:
     """Raise NotImplementedError, naming its ROADMAP.md item, for every
     setting whose path the port does not have yet: no other path runs in
-    its place."""
+    its place. A `--mesh-shape` other than the world size raises
+    ValueError (`parallel.check_mesh_shape`)."""
     d, f, r = cfg.data, cfg.flow, cfg.runtime
     missing = [
         (f.use_flow and not f.use_flow_file and f.raft_dtype != "float32",
          f"--raft_dtype {f.raft_dtype}, a bfloat16 live RAFT (item 9)"),
         (f.use_flow and not f.use_flow_file and f.raft_corr_dtype == "bfloat16",
          "--raft_corr_dtype bfloat16, a bfloat16 correlation pyramid (item 9)"),
-        (r.checkpoint_backend == "orbax", "--checkpoint-backend orbax (item 4)"),
-        (d.loader_backend == "grain", "--loader-backend grain (item 4)"),
-        (r.mesh_shape is not None and r.mesh_shape > 1,
-         "--mesh-shape > 1, data parallelism (item 4)"),
+        (r.checkpoint_backend == "orbax",
+         "--checkpoint-backend orbax, a JAX library (rank 0's torch.save checkpoint is "
+         "its counterpart; item 4)"),
+        (d.loader_backend == "grain",
+         "--loader-backend grain, absent on the card's machine (item 4)"),
         (r.wandb, "--wandb (item 1, left out of the port's CLI)"),
         (r.debug, "--debug, utils/visualize.py (item 7)"),
     ]
     for unported, what in missing:
         if unported:
             raise NotImplementedError(f"{what} is not ported (ROADMAP.md, Queue 1)")
+    check_mesh_shape(r.mesh_shape, world_size())
 
 
 def _exact_mask_ratio_fn(cfg: PretrainConfig) -> Callable:
@@ -356,7 +377,7 @@ def _exact_mask_ratio_fn(cfg: PretrainConfig) -> Callable:
     return ratio
 
 
-def _verbose_dump(batch, n_frames: int):
+def _verbose_dump(batch, n_frames: int, rank: int = 0):
     """--verbose: raw numeric dumps from the flow path, the reference's
     debug-print-for-raft flag (`contrast/option.py:79`). Each array prints
     dtype/shape/min/max/mean plus its first 8 raw values (the JAX driver's
@@ -367,16 +388,16 @@ def _verbose_dump(batch, n_frames: int):
             continue
         a = np.asarray(batch[key])
         head = np.array2string(a.reshape(-1)[:8], precision=4, separator=", ")
-        print(f"rank: 0 {key}: {a.dtype} {tuple(a.shape)} "
+        print(f"rank: {rank} {key}: {a.dtype} {tuple(a.shape)} "
               f"min {float(a.min()):.5g} max {float(a.max()):.5g} "
               f"mean {float(a.mean(dtype=np.float64)):.5g} head {head}",
               flush=True)
     for key in ("coord1", "coord2", "coords1", "coords2"):
         if key in batch:
             a = np.asarray(batch[key])
-            print(f"rank: 0 {key}: {a.dtype} {tuple(a.shape)}",
+            print(f"rank: {rank} {key}: {a.dtype} {tuple(a.shape)}",
                   np.round(a.reshape(a.shape[0], -1), 4).tolist(), flush=True)
-    print(f"rank: 0 n_frames: {n_frames}", flush=True)
+    print(f"rank: {rank} n_frames: {n_frames}", flush=True)
 
 
 def _peak_memory_mb(dev: torch.device) -> Optional[float]:
@@ -400,12 +421,15 @@ def _warm_start(model: PixPro, path: str, logger) -> None:
 
 
 def train(cfg: PretrainConfig, device=None, model: Optional[PixPro] = None) -> TrainState:
-    """Pretrain on one device (`cuda` unless told otherwise) from the files
-    the config names; returns the final TrainState. `model` takes an
-    already built PixPro, e.g. with weights carried over from the JAX
-    package, in place of a seeded one."""
+    """Pretrain from the files the config names; returns the final
+    TrainState. One process on one device (`cuda` unless told otherwise),
+    or rank r of a data-parallel job: the group a caller initialised, or
+    one made from torchrun's variables (`parallel.init_distributed`; the
+    card is then `cuda:LOCAL_RANK`). `model` takes an already built PixPro,
+    e.g. with weights carried over from the JAX package, in place of a
+    seeded one."""
     check_ported(cfg)
-    dev = resolve_device(device)
+    ctx, dev = init_distributed(device, mesh_shape=cfg.runtime.mesh_shape)
     # preemption-safe checkpointing: on SIGTERM, finish the in-flight step,
     # save, and return so that --auto-resume continues step-exactly.
     stop_requested = threading.Event()
@@ -415,7 +439,7 @@ def train(cfg: PretrainConfig, device=None, model: Optional[PixPro] = None) -> T
     except ValueError:
         pass  # not the main thread
     try:
-        return _train(cfg, dev, model, stop_requested)
+        return _train(cfg, dev, model, stop_requested, ctx)
     finally:
         if prev_handler is not None:
             try:
@@ -425,17 +449,20 @@ def train(cfg: PretrainConfig, device=None, model: Optional[PixPro] = None) -> T
 
 
 def _train(cfg: PretrainConfig, dev: torch.device, model: Optional[PixPro],
-           stop_requested: threading.Event) -> TrainState:
+           stop_requested: threading.Event, ctx: Dist) -> TrainState:
     out_dir = cfg.runtime.output_dir
-    logger = setup_logger(out_dir, 0)
-    os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "config.json"), "w") as f:
-        f.write(cfg.to_json())
-    logger.info("config:\n%s", cfg.to_json())
-    batch_size = cfg.data.batch_size  # one device: the global batch
-    logger.info("device: %s, global batch %d", dev, batch_size)
+    logger = setup_logger(out_dir, ctx.rank)
+    if ctx.is_main:
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "config.json"), "w") as f:
+            f.write(cfg.to_json())
+        logger.info("config:\n%s", cfg.to_json())
+    global_batch = cfg.data.batch_size * ctx.world_size
+    logger.info("device: %s, rank %d of %d (%s), global batch %d", dev, ctx.rank,
+                ctx.world_size, ctx.backend, global_batch)
 
-    loader = build_pretrain_loader(cfg, global_batch_size=batch_size)
+    loader = build_pretrain_loader(cfg, global_batch_size=global_batch,
+                                   num_hosts=ctx.world_size, host_id=ctx.rank)
     metrics_writer = profiler = None
     try:
         restart_transcode = cfg.data.restart_transcode and cfg.data.native_decode
@@ -443,9 +470,10 @@ def _train(cfg: PretrainConfig, dev: torch.device, model: Optional[PixPro],
             logger.warning("--restart-transcode requires --native-decode; "
                            "ignoring it (no in-memory transcode, no byte cache)")
         if cfg.data.cache_mode != "no" and (cfg.data.zip_mode or restart_transcode):
-            loader.dataset.init_cache(cfg.data.cache_mode, 0, 1)
+            loader.dataset.init_cache(cfg.data.cache_mode, ctx.rank, ctx.world_size)
         # forked decode workers start before this process first touches CUDA
         loader.start_workers()
+        use_device(dev)
         steps_per_epoch = len(loader)
         logger.info("dataset: %d instances, %d steps/epoch",
                     len(loader.dataset), steps_per_epoch)
@@ -454,7 +482,7 @@ def _train(cfg: PretrainConfig, dev: torch.device, model: Optional[PixPro],
             torch.backends.cudnn.benchmark = True  # fixed shapes: search once
         if model is not None:
             model = model.to(dev, memory_format=torch.channels_last)
-        trainer = build_trainer(cfg, dev, steps_per_epoch, model=model)
+        trainer = build_trainer(cfg, dev, steps_per_epoch, model=model, ctx=ctx)
         state = trainer.state
         if cfg.runtime.pretrained_model:
             _warm_start(state.model, cfg.runtime.pretrained_model, logger)
@@ -465,7 +493,7 @@ def _train(cfg: PretrainConfig, dev: torch.device, model: Optional[PixPro],
         if cfg.runtime.auto_resume and not resume_path:
             resume_path = latest_checkpoint(out_dir) or ""
         ckpt_extra = {}
-        if resume_path:
+        if resume_path:  # every rank reads it
             state, ckpt_epoch, ckpt_extra = load_checkpoint(resume_path, state)
             start_epoch = ckpt_epoch + 1
             logger.info("resumed from %s (epoch %d, step %d)",
@@ -478,9 +506,12 @@ def _train(cfg: PretrainConfig, dev: torch.device, model: Optional[PixPro],
             resume_skip_epoch = start_epoch
             logger.info("step-exact resume: epoch %d from batch %d",
                         start_epoch, resume_skip)
+        # the same seed and files give every rank the same state; rank 0's
+        # copy makes sure of it
+        broadcast_module_(state.model, ctx.group)
 
         def save(epoch_, extra_=None):
-            return save_checkpoint(out_dir, epoch_, state, cfg.to_json(), extra=extra_)
+            return save_checkpoint_rank0(ctx, out_dir, epoch_, state, cfg.to_json(), extra_)
 
         max_epoch = cfg.optim.epochs
         if cfg.runtime.debug_epochs:
@@ -489,17 +520,31 @@ def _train(cfg: PretrainConfig, dev: torch.device, model: Optional[PixPro],
         if (cfg.runtime.mask_ratio_exact and cfg.flow.use_flow
                 and cfg.flow.alpha1 is not None and cfg.flow.alpha2 is not None):
             exact_mask = _exact_mask_ratio_fn(cfg)
-        metrics_writer = MetricsWriter(out_dir, use_tensorboard=cfg.runtime.tensorboard)
+        if ctx.is_main:
+            metrics_writer = MetricsWriter(out_dir, use_tensorboard=cfg.runtime.tensorboard)
         launches0 = {k.__name__: k.launches for k in KERNELS}
         loss_meter, time_meter = AverageMeter(), AverageMeter()
         global_step = state.step
+        # one process reads its flag every step; ranks vote every
+        # preempt_vote_steps batches, all at the same indices (a rank that
+        # stopped on its own flag would leave the others in the next step's
+        # collectives), and once at the end of an epoch
+        vote_every = max(1, int(cfg.runtime.preempt_vote_steps))
+
+        def poll_preempt(idx):
+            if ctx.group is None:
+                return stop_requested.is_set()
+            if idx % vote_every:
+                return False
+            return any_process(stop_requested.is_set(), ctx.group)
+
         for epoch in range(start_epoch, max_epoch + 1):
             t_end = time.time()
             skip = resume_skip if epoch == resume_skip_epoch else 0
             preempt_idx = None
             preempted = False
             for idx, batch in enumerate(loader.epoch(epoch, skip_batches=skip), start=skip):
-                if stop_requested.is_set():
+                if poll_preempt(idx):
                     preempted = True
                     preempt_idx = idx  # this batch has NOT been stepped
                     break
@@ -510,7 +555,7 @@ def _train(cfg: PretrainConfig, dev: torch.device, model: Optional[PixPro],
                 batch.pop("index", None)
                 batch.pop("target", None)
                 if cfg.runtime.verbose and cfg.flow.use_flow:
-                    _verbose_dump(batch, cfg.data.n_frames)
+                    _verbose_dump(batch, cfg.data.n_frames, ctx.rank)
                 device_batch = to_device(batch, dev)
 
                 # optional profiler window over steps 10..15
@@ -528,14 +573,16 @@ def _train(cfg: PretrainConfig, dev: torch.device, model: Optional[PixPro],
                 if profiler is not None and global_step >= 15:
                     profiler.stop()
                     os.makedirs(cfg.runtime.profile_dir, exist_ok=True)
-                    trace = os.path.join(cfg.runtime.profile_dir, "trace.json")
+                    trace = os.path.join(cfg.runtime.profile_dir,
+                                         "trace.json" if ctx.is_main
+                                         else f"trace.rank{ctx.rank}.json")
                     profiler.export_chrome_trace(trace)
                     profiler = None
                     logger.info("profiler trace written to %s", trace)
 
                 if logged_step:
                     metrics = {k: float(v) for k, v in metrics.items()}
-                    loss_meter.update(metrics["loss"], batch_size)
+                    loss_meter.update(metrics["loss"], global_batch)
                     time_meter.update(time.time() - t_end)
                     extra = ""
                     if "mask_ratio_fwd" in metrics:
@@ -544,11 +591,15 @@ def _train(cfg: PretrainConfig, dev: torch.device, model: Optional[PixPro],
                     if exact_mask is not None and "flows_fwd" in device_batch:
                         r_f, r_b = exact_mask(device_batch["flows_fwd"],
                                               device_batch["flows_bwd"])
-                        metrics["mask_ratio_exact_fwd"] = r_f
-                        metrics["mask_ratio_exact_bwd"] = r_b
+                        r = host_mean({"fwd": r_f, "bwd": r_b}, ctx.group)
+                        metrics["mask_ratio_exact_fwd"] = r_f = r["fwd"]
+                        metrics["mask_ratio_exact_bwd"] = r_b = r["bwd"]
                         extra += f" mask_r_exact {r_f:.3f}/{r_b:.3f}"
                     if n_eff is not None:
                         mean_f, no_flow_r, _ = frame_stats(n_eff, cfg.data.n_frames)
+                        f_stats = host_mean({"mean": mean_f, "no_flow": no_flow_r},
+                                            ctx.group)
+                        mean_f, no_flow_r = f_stats["mean"], f_stats["no_flow"]
                         extra += f" frames {mean_f:.2f} (no-flow {no_flow_r:.1%})"
                     mem_mb = _peak_memory_mb(dev)
                     if mem_mb is not None:
@@ -560,22 +611,26 @@ def _train(cfg: PretrainConfig, dev: torch.device, model: Optional[PixPro],
                         time_meter.val, metrics["lr"], metrics["loss"],
                         loss_meter.avg, metrics["loss"] + 4.0,
                         metrics["pos_num"], metrics["pos_mean"], extra)
-                    scalars = dict(metrics)
-                    scalars["loss_plus4"] = metrics["loss"] + 4.0
-                    scalars["epoch"] = epoch
-                    # seconds since the previous step ended, loader wait and
-                    # the unlogged steps' device work included (the log
-                    # line's `time`)
-                    scalars["time"] = time_meter.val
-                    if mem_mb is not None:
-                        scalars["peak_memory_mb"] = mem_mb
-                    if n_eff is not None:
-                        scalars["mean_n_frames"] = mean_f
-                        scalars["no_optical_flow_ratio"] = no_flow_r
-                    metrics_writer.write(global_step, scalars)
+                    if metrics_writer is not None:
+                        scalars = dict(metrics)
+                        scalars["loss_plus4"] = metrics["loss"] + 4.0
+                        scalars["epoch"] = epoch
+                        # seconds since the previous step ended, loader wait
+                        # and the unlogged steps' device work included (the
+                        # log line's `time`)
+                        scalars["time"] = time_meter.val
+                        if mem_mb is not None:
+                            scalars["peak_memory_mb"] = mem_mb
+                        if n_eff is not None:
+                            scalars["mean_n_frames"] = mean_f
+                            scalars["no_optical_flow_ratio"] = no_flow_r
+                        metrics_writer.write(global_step, scalars)
                 t_end = time.time()
 
-            preempted = preempted or stop_requested.is_set()
+            if not preempted:
+                # TERM after the epoch's last batch: still a vote, so every
+                # rank takes the same branch below
+                preempted = any_process(stop_requested.is_set(), ctx.group)
             if preempted:
                 # step-exact preemption: record (epoch, next batch) so resume
                 # fast-forwards the deterministic loader stream — no redone
@@ -585,14 +640,17 @@ def _train(cfg: PretrainConfig, dev: torch.device, model: Optional[PixPro],
                 # TERM after the epoch's last batch: the epoch IS complete
                 done = epoch if preempt_idx is None else epoch - 1
                 path = save(max(done, start_epoch - 1), extra)
-                logger.info("SIGTERM: saved preemption checkpoint %s at step %d "
-                            "(resume %s); exiting cleanly", path, state.step,
+                logger.info("SIGTERM: %s at step %d (resume %s); exiting cleanly",
+                            f"saved preemption checkpoint {path}" if path else
+                            "rank 0 saved the preemption checkpoint", state.step,
                             f"epoch {epoch} batch {preempt_idx}"
                             if preempt_idx is not None else f"epoch {epoch}")
                 break
 
             if epoch % cfg.runtime.save_freq == 0 or epoch == max_epoch:
-                logger.info("saved checkpoint %s", save(epoch))
+                path = save(epoch)
+                if path:
+                    logger.info("saved checkpoint %s", path)
 
         launches = {k.__name__: k.launches - launches0[k.__name__] for k in KERNELS}
         logger.info("kernel launches: %s", json.dumps(launches))

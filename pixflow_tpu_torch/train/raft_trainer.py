@@ -17,7 +17,13 @@ The optimizer is the port's own, in optax's op order, not
 On the card the correlation lookup's backward runs through K2's grid entry
 backward kernel (`models/raft/corr.py`); RAFT's BatchNorm (basic's context
 encoder) keeps its running statistics in training, as the JAX package's
-`use_running_average=True`."""
+`use_running_average=True`.
+
+Data parallel (`group`): each rank steps on its rows of the global batch;
+the sequence loss is a mean over equal local batches, so one all-reduce
+after `backward()` averages the gradients (and sums the metrics' terms)
+over the ranks before the clip, which then reads the global norm. The
+frozen BatchNorm needs no statistics from the other ranks."""
 
 from __future__ import annotations
 
@@ -26,23 +32,22 @@ from typing import Callable, Dict
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from ..models.raft import RAFT
+from ..parallel.multihost import all_reduce_sum_
 
 MAX_FLOW = 400.0  # pixels with |gt| >= MAX_FLOW are not supervised (RAFT)
 
 _f32 = np.float32
 
 
-def sequence_loss(flow_preds: torch.Tensor, flow_gt: torch.Tensor, valid: torch.Tensor,
-                  gamma: float = 0.8, max_flow: float = MAX_FLOW):
-    """Gamma-weighted L1 over every iteration's prediction.
-
-    flow_preds [N, B, H, W, 2], flow_gt [B, H, W, 2], valid [B, H, W]
-    (>= 0.5: supervised). Iteration i weighs gamma^(N-1-i). The masked L1 is
-    averaged over ALL elements, invalid ones included (the reference's
-    `(valid[:, None] * i_loss).mean()`). Returns (loss, metrics) with the
-    final prediction's EPE and 1px/3px/5px rates over valid pixels."""
+def _sequence_loss_terms(flow_preds: torch.Tensor, flow_gt: torch.Tensor,
+                         valid: torch.Tensor, gamma: float, max_flow: float):
+    """(loss, counts): counts [5] = the final prediction's EPE summed over
+    valid pixels, the valid pixels below 1, 3 and 5 px of EPE, and the
+    valid pixels (the metrics' numerators and denominator, which add
+    across ranks)."""
     n = flow_preds.shape[0]
     mag = torch.sqrt(torch.sum(flow_gt ** 2, dim=-1))
     valid = (valid >= 0.5) & (mag < max_flow)
@@ -56,11 +61,29 @@ def sequence_loss(flow_preds: torch.Tensor, flow_gt: torch.Tensor, valid: torch.
     with torch.no_grad():
         epe = torch.sqrt(torch.sum((flow_preds[-1] - flow_gt) ** 2, dim=-1))
         epe_v = torch.where(valid, epe, torch.zeros((), device=epe.device))
-        n_valid = torch.clamp(valid.sum(), min=1).float()
-        metrics = {"epe": epe_v.sum() / n_valid}
-        for px in (1, 3, 5):
-            metrics[f"{px}px"] = ((epe_v < float(px)) & valid).sum().float() / n_valid
-    return loss, metrics
+        counts = torch.stack([epe_v.sum()] + [((epe_v < float(px)) & valid).sum().float()
+                                              for px in (1, 3, 5)]
+                             + [valid.sum().float()])
+    return loss, counts
+
+
+def _metrics(counts: torch.Tensor) -> dict:
+    n_valid = torch.clamp(counts[4], min=1.0)
+    return {"epe": counts[0] / n_valid, "1px": counts[1] / n_valid,
+            "3px": counts[2] / n_valid, "5px": counts[3] / n_valid}
+
+
+def sequence_loss(flow_preds: torch.Tensor, flow_gt: torch.Tensor, valid: torch.Tensor,
+                  gamma: float = 0.8, max_flow: float = MAX_FLOW):
+    """Gamma-weighted L1 over every iteration's prediction.
+
+    flow_preds [N, B, H, W, 2], flow_gt [B, H, W, 2], valid [B, H, W]
+    (>= 0.5: supervised). Iteration i weighs gamma^(N-1-i). The masked L1 is
+    averaged over ALL elements, invalid ones included (the reference's
+    `(valid[:, None] * i_loss).mean()`). Returns (loss, metrics) with the
+    final prediction's EPE and 1px/3px/5px rates over valid pixels."""
+    loss, counts = _sequence_loss_terms(flow_preds, flow_gt, valid, gamma, max_flow)
+    return loss, _metrics(counts)
 
 
 def one_cycle_schedule(lr_peak: float, total_steps: int,
@@ -172,14 +195,17 @@ def raft_train_state(model: RAFT, tx: ClippedAdamW) -> RaftTrainState:
 
 
 def make_raft_train_step(tx: ClippedAdamW, *, iters: int = 12, gamma: float = 0.8,
-                         plain: bool = False):
+                         plain: bool = False, group=None):
     """A train step on RaftTrainState (updated in place): RAFT with every
     iteration's prediction, the sequence loss, its gradients, the clipped
     AdamW update. batch: img1/img2 [B, H, W, 3] float (0..255), flow
     [B, H, W, 2], valid [B, H, W], tensors on the model's device. Returns
     (state, metrics): loss, epe, 1px, 3px, 5px and grad_norm as 0-d
     tensors (reading them waits for the device). `plain=True` reads the
-    correlation pyramid through the plain gather (comparison runs)."""
+    correlation pyramid through the plain gather (comparison runs). With
+    `group`, the gradients left in `.grad` and the metrics are the global
+    batch's: the mean over the ranks, and the EPE rates over all ranks'
+    valid pixels."""
 
     def step(state: RaftTrainState, batch: dict):
         model = state.model
@@ -187,11 +213,20 @@ def make_raft_train_step(tx: ClippedAdamW, *, iters: int = 12, gamma: float = 0.
         model.zero_grad(set_to_none=True)
         _, preds = model(batch["img1"], batch["img2"], iters=iters, all_iters=True,
                          plain=plain)
-        loss, metrics = sequence_loss(preds, batch["flow"], batch["valid"], gamma)
+        loss, counts = _sequence_loss_terms(preds, batch["flow"], batch["valid"], gamma,
+                                            MAX_FLOW)
         loss.backward()
         params = dict(model.named_parameters())
+        loss = loss.detach()
+        if group is not None:
+            world = dist.get_world_size(group)
+            grads = [p.grad for p in params.values() if p.grad is not None]
+            scalars = torch.cat([loss.reshape(1), counts])
+            all_reduce_sum_(grads + [scalars], group)
+            torch._foreach_div_(grads, world)
+            loss, counts = scalars[0] / world, scalars[1:]
         norm = tx.step_(state.opt_state, params, {n: p.grad for n, p in params.items()})
         state.step += 1
-        return state, {"loss": loss.detach(), **metrics, "grad_norm": norm}
+        return state, {"loss": loss, **_metrics(counts), "grad_norm": norm}
 
     return step

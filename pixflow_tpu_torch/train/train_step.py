@@ -14,7 +14,21 @@ Order within a step, as in the JAX package and the reference:
     forward of both branches (bf16 autocast when the model says so) ->
     pixel-pair loss (K1 on the card), over the two views, or over every
     (span, start) window of the frame stack with `use_flow_frames` ->
-    backward (K1's backward kernel on the card) -> LARS/SGD -> metrics.
+    backward (K1's backward kernel on the card) -> [data parallel: the
+    gradients and the metrics summed over the ranks in one all-reduce, the
+    gradients and the mean metrics divided by the world size] -> LARS/SGD.
+
+Data parallel (`group`): each rank steps on its rows of the global batch
+with a model whose BatchNorms take the same group (global statistics).
+The loss is a per-sample mean, so the mean over ranks of the ranks' losses
+and of their gradients is the global batch's; LARS then takes identical
+gradients on every rank and the weights stay equal. One flat all-reduce
+after `autograd.grad`, not DDP: the step differentiates with
+`torch.autograd.grad` (DDP's hooks fire on `.backward()` into `.grad`) and
+calls the model through methods other than `forward` (`multi_span_loss`),
+and the BatchNorm buffers are equal on every rank by construction.
+`pos_num` is summed over the ranks; loss, `pos_mean` and mask ratios are
+averaged.
 
 The step runs eagerly and updates the state's model and optimizer state in
 place. `plain_kernels=True` routes every kernel call site (pair sums and
@@ -30,11 +44,13 @@ from __future__ import annotations
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from ..models.pixpro import ema_update, momentum_schedule
 from ..ops.augment import apply_photometric
 from ..ops.flow import compose_and_mask, mask_ratio, span_windows
 from ..ops.flow_points import LazyFlowUp, mask_ratio_estimate
+from ..parallel.multihost import all_reduce_sum_
 from .lars import LarsSgd
 from .state import TrainState
 
@@ -89,6 +105,7 @@ def make_train_step(
     device_aug: bool = False,
     plain_kernels: bool = False,
     raft_fn: Optional[Callable] = None,
+    group=None,
 ):
     """Build `step_fn(state, batch) -> (state, metrics)`.
 
@@ -184,15 +201,33 @@ def make_train_step(
         names = list(state.opt_state.momentum)
         grads = torch.autograd.grad(loss, [params[n] for n in names],
                                     allow_unused=True)
+
+        sums = {"pos_num_1": torch.sum(stats["pos_num_1"]),
+                "pos_num_2": torch.sum(stats["pos_num_2"])}
+        means = {"loss": loss.detach(),
+                 "pos_mean_1": torch.mean(stats["pos_mean_1"]),
+                 "pos_mean_2": torch.mean(stats["pos_mean_2"])}
+        if mask_fwd is not None:
+            means["mask_ratio_fwd"] = torch.mean(mask_ratio(mask_fwd))
+            means["mask_ratio_bwd"] = torch.mean(mask_ratio(mask_bwd))
+        elif mask_metrics is not None:
+            means["mask_ratio_fwd"], means["mask_ratio_bwd"] = mask_metrics
+        if group is not None:
+            world = dist.get_world_size(group)
+            scalars = torch.stack([v.float() for v in (*sums.values(), *means.values())])
+            reduced = [g for g in grads if g is not None]
+            all_reduce_sum_(reduced + [scalars], group)
+            torch._foreach_div_(reduced, world)
+            values = scalars.unbind()
+            sums = dict(zip(sums, values[:len(sums)]))
+            means = {k: v / world for k, v in zip(means, values[len(sums):])}
         lr_metric = lr_schedule(state.step)
         tx.step_(state.opt_state, params, dict(zip(names, grads)))
 
-        pos_num_1 = torch.sum(stats["pos_num_1"])
-        pos_num_2 = torch.sum(stats["pos_num_2"])
-        pos_mean_1 = torch.mean(stats["pos_mean_1"])
-        pos_mean_2 = torch.mean(stats["pos_mean_2"])
+        pos_num_1, pos_num_2 = sums["pos_num_1"], sums["pos_num_2"]
+        pos_mean_1, pos_mean_2 = means["pos_mean_1"], means["pos_mean_2"]
         metrics = {
-            "loss": loss.detach(),
+            "loss": means["loss"],
             "lr": lr_metric,
             "ema_momentum": m,
             "pos_num_1": pos_num_1,
@@ -202,11 +237,9 @@ def make_train_step(
             "pos_num": pos_num_1 + pos_num_2,
             "pos_mean": (pos_mean_1 + pos_mean_2) / 2.0,
         }
-        if mask_fwd is not None:
-            metrics["mask_ratio_fwd"] = torch.mean(mask_ratio(mask_fwd))
-            metrics["mask_ratio_bwd"] = torch.mean(mask_ratio(mask_bwd))
-        elif mask_metrics is not None:
-            metrics["mask_ratio_fwd"], metrics["mask_ratio_bwd"] = mask_metrics
+        for key in ("mask_ratio_fwd", "mask_ratio_bwd"):
+            if key in means:
+                metrics[key] = means[key]
 
         state.step += 1
         state.ema_k += 1

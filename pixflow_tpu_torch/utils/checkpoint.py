@@ -15,7 +15,11 @@ both written atomically (a temporary file, then `os.replace`). Loading
 restores in place onto the device the state lives on. Files are read with
 `weights_only=True`: tensors, numbers and strings, no pickled code.
 `publish_checkpoint` strips the training state and prefixes the filename
-with the weight hash (capability of reference `publish_model.py`)."""
+with the weight hash (capability of reference `publish_model.py`).
+
+Data parallel, every rank holds the same state: rank 0 alone writes
+(`save_checkpoint_rank0`, the reference's torch.save on rank 0), the others
+wait at a barrier until the file is whole, and every rank reads a resume."""
 
 from __future__ import annotations
 
@@ -60,6 +64,17 @@ def save_checkpoint(output_dir: str, epoch: int, state, config_json: str = "",
     cur = os.path.join(output_dir, "current.pth")
     shutil.copyfile(path, cur + ".tmp")
     os.replace(cur + ".tmp", cur)
+    return path
+
+
+def save_checkpoint_rank0(ctx, output_dir: str, epoch: int, state, config_json: str = "",
+                          extra: Optional[dict] = None) -> Optional[str]:
+    """`save_checkpoint` on rank 0 of `ctx` (a `parallel.Dist`), then a
+    barrier of all ranks: the path on rank 0, None on the others."""
+    path = None
+    if ctx.is_main:
+        path = save_checkpoint(output_dir, epoch, state, config_json, extra=extra)
+    ctx.barrier()
     return path
 
 

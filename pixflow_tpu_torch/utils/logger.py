@@ -1,6 +1,7 @@
 """Console + per-host file logging: the port's copy of
 `pixflow_tpu/utils/logger.py` (reference `contrast/logger.py`): colored
-console on process 0, a log file per host (`log.txt`, `log.txt.hostN`).
+console on process 0, a log file per host (`log.txt`, `log.txt.hostN`):
+per rank, in a data-parallel run (`host_id` is the rank).
 
 Two differences. A second call reconfigures the logger instead of
 returning the first call's (its file handler is closed), so consecutive

@@ -636,3 +636,61 @@ def test_raft_small_train_step_through_the_kernels(dev):
         assert torch.isfinite(gk).all(), n
         gp = grads_p[n]
         assert float((gk - gp).norm()) <= 1e-4 * float(gp.norm()) + 1e-8 * total, n
+
+
+def test_view_batch_norm_over_two_gloo_ranks_on_the_card(dev):
+    """Two ranks on the one card, joined by gloo (NCCL refuses two ranks on
+    one device), each normalising its rows of both view groups with the
+    global statistics: output, gradients and running statistics equal one
+    process's ViewBatchNorm on the whole batch on the card."""
+    import numpy as np
+
+    from pixflow_tpu_torch.models import ViewBatchNorm
+    from torch_dist_worker import run_cases, spawn
+
+    rng = np.random.default_rng(32)
+    groups, world, local_b, c = 2, 2, 3, 16
+    x = (3 + 2 * rng.standard_normal((groups * world * local_b, 4, 5, c))).astype(np.float32)
+    ct = rng.standard_normal(x.shape).astype(np.float32)
+    state = {"weight": (1 + 0.2 * rng.standard_normal(c)).astype(np.float32),
+             "bias": (0.3 * rng.standard_normal(c)).astype(np.float32),
+             "running_mean": np.full(c, 0.5, np.float32),
+             "running_var": np.full(c, 2.0, np.float32)}
+
+    def local(a):  # rank r's rows of every view group
+        g = a.reshape((groups, world, local_b) + a.shape[1:])
+        return [g[:, r].reshape((groups * local_b,) + a.shape[1:]) for r in range(world)]
+
+    ranks = spawn(run_cases, world, {"view_batch_norm": {
+        "x": local(x), "ct": local(ct), "state": state, "device": "cuda:0"}},
+        device="cuda:0")
+
+    bn = ViewBatchNorm(c, view_groups=groups, momentum=0.9).to(dev)
+    bn.load_state_dict({k: torch.tensor(v) for k, v in state.items()})
+    xt = torch.tensor(x, device=dev, requires_grad=True)
+    y = bn(xt)
+    gx, gw, gb = torch.autograd.grad(torch.sum(y * torch.tensor(ct, device=dev)),
+                                     [xt, bn.weight, bn.bias])
+
+    def whole(key):
+        parts = [r["view_batch_norm"]["autograd"][key].reshape(
+            (groups, local_b) + x.shape[1:]) for r in ranks]
+        return np.stack(parts, axis=1).reshape(x.shape)
+
+    tol = dict(rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(whole("y"), y.detach().cpu().numpy(), **tol)
+    np.testing.assert_allclose(whole("gx"), gx.cpu().numpy(), **tol)
+    # the weight and bias gradients are sums over the 240 rows of a channel,
+    # which the ranks split and the card adds in another order: held at
+    # 1e-5 of the sum of the terms' magnitudes (~100 float32 ulps)
+    xhat = ((y - bn.bias) / bn.weight).detach().cpu().numpy()
+    mags = {"gw": np.abs(ct * xhat).reshape(-1, c).sum(0),
+            "gb": np.abs(ct).reshape(-1, c).sum(0)}
+    for key, want in (("gw", gw), ("gb", gb)):
+        got = sum(r["view_batch_norm"]["autograd"][key] for r in ranks)
+        err = np.abs(got - want.cpu().numpy())
+        assert (err <= 1e-5 * mags[key]).all(), (key, err, mags[key])
+    for r in ranks:
+        got = r["view_batch_norm"]["autograd"]
+        np.testing.assert_allclose(got["mean"], bn.running_mean.cpu().numpy(), **tol)
+        np.testing.assert_allclose(got["var"], bn.running_var.cpu().numpy(), **tol)

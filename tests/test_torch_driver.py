@@ -9,8 +9,9 @@
     never stopped;
 (c) the CLI, `python -m pixflow_tpu_torch.main_pretrain`: a run on the CPU,
     the error without a card, the recipe-override rule against the JAX
-    CLI's, and NotImplementedError for every flag whose path is not
-    ported (the settings that run since multi-span and the materialising
+    CLI's, NotImplementedError for every flag whose path is not ported
+    and the errors of `--multihost` without torchrun's variables and of a
+    `--mesh-shape` other than the world size (the settings that run since multi-span and the materialising
     path were ported: `tests/test_torch_driver_multispan.py`)."""
 
 import importlib.util
@@ -276,11 +277,21 @@ UNPORTED = {
 }
 
 
-@pytest.mark.parametrize("flags", list(UNPORTED.values()), ids=list(UNPORTED))
-def test_unported_flags_raise(flags, tmp_path):
+# data parallelism is ported: without torchrun's variables `--multihost`
+# raises naming them, and `--mesh-shape 2` in one process raises naming both
+# numbers (tests/test_torch_ddp.py runs them with two ranks)
+REFUSED_AS = {"multihost": (RuntimeError, "MASTER_ADDR, MASTER_PORT, RANK, WORLD_SIZE"),
+              "mesh-shape": (ValueError, "--mesh-shape 2 does not equal WORLD_SIZE 1")}
+
+
+@pytest.mark.parametrize("setting", list(UNPORTED))
+def test_unported_flags_raise(setting, tmp_path, monkeypatch):
+    for var in ("MASTER_ADDR", "MASTER_PORT", "RANK", "WORLD_SIZE", "LOCAL_RANK"):
+        monkeypatch.delenv(var, raising=False)
     argv = ["--recipe", RECIPE, "--data-dir", str(tmp_path / "none"), "--output-dir",
-            str(tmp_path / "out"), "--device", "cpu", *flags]
-    with pytest.raises(NotImplementedError, match="not ported"):
+            str(tmp_path / "out"), "--device", "cpu", *UNPORTED[setting]]
+    error, match = REFUSED_AS.get(setting, (NotImplementedError, "not ported"))
+    with pytest.raises(error, match=match):
         main_pretrain.main(argv)
     assert not os.path.exists(tmp_path / "out")  # raised before any work
 

@@ -2,7 +2,8 @@
 the photometric ops on the device were ported (ROADMAP Queue 1 item 3):
 the CLI trains multi-span with `--device-aug` and `--mask-ratio-exact` on
 the CPU, `check_ported` accepts the five settings it refused before and
-one step of each runs, and it still refuses the items left to port. The
+one step of each runs, and it still refuses the items left to port and a
+`--mesh-shape` other than the world size. The
 corpus and CLI helpers are `tests/test_torch_driver.py`'s."""
 
 import json
@@ -70,12 +71,20 @@ def test_item_3_flags_run(flags):
     assert np.isfinite(m["loss"]) and m["pos_num"] > 0
 
 
-@pytest.mark.parametrize("setting,item", [
-    ("live-raft", "item 9"), ("checkpoint-orbax", "item 4"), ("loader-grain", "item 4"),
-    ("mesh-shape", "item 4"), ("debug", "item 7")])
-def test_check_ported_refuses_the_items_still_to_port(setting, item):
+@pytest.mark.parametrize("setting,error,match", [
+    pytest.param("live-raft", NotImplementedError, "item 9", id="live-raft-item 9"),
+    pytest.param("checkpoint-orbax", NotImplementedError, "item 4",
+                 id="checkpoint-orbax-item 4"),
+    pytest.param("loader-grain", NotImplementedError, "item 4", id="loader-grain-item 4"),
+    # item 4's data parallelism is ported: a mesh other than the world of
+    # ranks (one process here) is what check_ported refuses now
+    pytest.param("mesh-shape", ValueError, "--mesh-shape 2 does not equal WORLD_SIZE 1",
+                 id="mesh-shape-item 4"),
+    pytest.param("debug", NotImplementedError, "item 7", id="debug-item 7")])
+def test_check_ported_refuses_the_items_still_to_port(setting, error, match, monkeypatch):
     from pixflow_tpu_torch.train.driver import check_ported
 
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     cfg, _, _ = main_pretrain.parse_args(["--recipe", RECIPE, *UNPORTED[setting]])
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(error, match=match):
         check_ported(cfg)

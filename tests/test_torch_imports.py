@@ -29,6 +29,10 @@ def test_port_files_exist():
     assert (ROOT / "pixflow_tpu_torch" / "__init__.py").exists()
     assert (ROOT / "chip_smoke.py").exists()
     assert len(FILES) > 20
+    # the data-parallel layer and its entry point are checked below too
+    for rel in ("parallel/__init__.py", "parallel/dist.py", "parallel/multihost.py",
+                "main_pretrain_multihost.py"):
+        assert ROOT / "pixflow_tpu_torch" / rel in FILES, rel
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(ROOT)))

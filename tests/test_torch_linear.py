@@ -269,10 +269,13 @@ def test_convert_pretrain_to_d2_cli_exports_the_chosen_branch(tmp_path, capsys):
 
 # --- the CLI --------------------------------------------------------------------------
 
-def test_mesh_shape_above_one_is_refused():
+def test_mesh_shape_above_one_is_refused(monkeypatch):
+    """In one process: the data mesh is the world of ranks
+    (tests/test_torch_ddp.py runs the probe on two)."""
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
     cfg = LinearConfig()
     cfg.runtime.mesh_shape = 2
-    with pytest.raises(NotImplementedError, match="item 4"):
+    with pytest.raises(ValueError, match="--mesh-shape 2 does not equal WORLD_SIZE 1"):
         linear_eval(cfg, "unused.pth", device="cpu")
 
 

@@ -32,6 +32,21 @@ from torch_threads import cap_torch_threads
 
 cap_torch_threads()
 
+
+@pytest.fixture(autouse=True)
+def _no_tensorboard_in_process(monkeypatch):
+    """The CLI runs this module makes in its own process write no
+    TensorBoard files: the port's writer registers TensorBoard's
+    TensorFlow-free marker for the whole process, and a JAX package test
+    that the same test worker runs later (its writer is TensorFlow's) would
+    then fail on TensorBoard's missing TensorFlow API."""
+    from pixflow_tpu_torch.train import driver
+
+    writer = driver.MetricsWriter
+    monkeypatch.setattr(driver, "MetricsWriter",
+                        lambda out, use_tensorboard=True, **kw: writer(
+                            out, use_tensorboard=False, **kw))
+
 # the nframe6 recipe's settings as flags (configs/recipes.py), at a CPU size
 RECIPE_FLAGS = ["--dataset", "bdd100k", "--aug", "BYOL", "--crop", "0.08", "--use_flow",
                 "--flow_up", "--alpha1", "0.01", "--alpha2", "0.5", "--pixpro-p", "2",
